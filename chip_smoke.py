@@ -12,8 +12,14 @@ What it does, in order (any failed check raises; exit code != 0):
 1. Each kernel against its plain PyTorch version on the card: the fused
    rotator + stage 2 (kernel 1) and the unfused stage 2 (kernel 2) at the
    main-path shape (C=4096, audio_block=2048, 12 kHz plan), at the
-   20.25 kHz plan (d2=4) and at C=14 and C=100; the AGC envelope
-   (kernel 3) and the SAM PLL (kernel 4) at (2048, 4096).  Times both.
+   20.25 kHz plan (d2=4) and at C=13, C=14 and C=100; the AGC envelope
+   (kernel 3) and the SAM PLL (kernel 4) at (2048, 4096), the PLL's
+   input with lanes that are all zero, turn to zero, hold one NaN, one
+   infinity, or sit at the +-fmax clamp.  Times both, and for kernel 2
+   one library call (``conv1d``) that computes the same function.  Each
+   kernel's time is held against its bound: the larger of its bytes
+   (every input and output once) over 3.35 TB/s and its operations over
+   67 TFLOP/s (the H100 SXM's published float32 peak).
 2. DDC fidelity: a noise-free full-scale tone through ``ddc_block`` —
    right frequency, amplitude ~1.0, SINAD >= 80 dB (a stage-1 matmul
    that quietly ran in TF32 would fail this).
@@ -25,7 +31,7 @@ What it does, in order (any failed check raises; exit code != 0):
    with every kernel's launch counter shown to rise in that run.
 
 The line before the last is a JSON object with each kernel's launches,
-error against its plain version and times; the last line is
+error against its plain version, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no jax.
 """
 
@@ -51,6 +57,10 @@ EMPTY_FREQS = (5.5e6, 12.3e6, 18.1e6, 25.7e6)
 # lane; the AGC lifts it by at most 84 dB (x15849) to ~0.05 rms.  A lane
 # that caught a carrier sits at the AGC target (0.5 peak, ~0.35 rms).
 EMPTY_RMS_MAX = 0.15
+# published peaks of one H100 SXM: device memory and float32 outside the
+# tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 KERNEL_SOURCES = {
     "stage2_rot": ("csrc/stage2.cu",
                    "flydog_sdr_gps_tpu/ops/pallas_kernels.py:178"),
@@ -103,12 +113,69 @@ def max_err(got, ref) -> tuple[float, float]:
     return (float((got - ref).abs().max()), float(ref.abs().max()))
 
 
+def max_err_finite(torch, got, ref, what: str) -> tuple[float, float]:
+    """:func:`max_err` over the elements where ``ref`` is finite; where
+    it is not, ``got`` must hold the same NaN or infinity."""
+    fin = torch.isfinite(ref)
+    a = torch.view_as_real(got) if got.is_complex() else got
+    b = torch.view_as_real(ref) if ref.is_complex() else ref
+    mask = fin[..., None] if got.is_complex() else fin
+    check(bool(torch.allclose(torch.where(mask, 0.0, a),
+                              torch.where(mask, 0.0, b), rtol=0.0, atol=0.0,
+                              equal_nan=True)),
+          f"{what}: non-finite elements differ from the plain version")
+    zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
+    return max_err(torch.where(fin, got, zero), torch.where(fin, ref, zero))
+
+
+def roofline(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the float32 peak, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bound_bytes_ms=by_bytes, bound_ops_ms=by_ops,
+                bytes=nbytes, flops=flops)
+
+
+def conv1d_library_ms(torch, timer, y, h2, d2: int, k2: int, ref) -> dict:
+    """Time one PyTorch call for kernel 2's function: ``conv1d`` with
+    stride d2 over the 2C real planes laid out (2C, 1, Kp), TF32 off.
+    The layout change before and after is not timed.  If cuDNN refuses
+    the shape, ``matmul`` of the taps with a window view is timed."""
+    import torch.nn.functional as F
+    c = y.shape[1]
+    w = torch.as_tensor(np.asarray(h2, np.float32), device=y.device)
+    planes = torch.view_as_real(y).permute(1, 2, 0).reshape(2 * c, 1, -1)
+    planes = planes.contiguous()
+    try:
+        fn = lambda: F.conv1d(planes, w[None, None], stride=d2)
+        got = fn().reshape(c, 2, k2).permute(2, 0, 1).contiguous()
+        call = "conv1d"
+    except RuntimeError as exc:
+        log(f"  conv1d refused the shape ({str(exc).splitlines()[0]}); "
+            "timing matmul over a window view")
+        del planes
+        flat = torch.view_as_real(y).reshape(-1, 2 * c)
+        win = flat.as_strided((k2, len(h2), 2 * c),
+                              (d2 * 2 * c, 2 * c, 1))
+        fn = lambda: torch.matmul(w[None], win)
+        got = fn().reshape(k2, c, 2)
+        call = "matmul"
+    err = float((torch.view_as_complex(got) - ref).abs().max())
+    log(f"  library call for stage2: {call}, max|err| {err:.3e} vs plain "
+        "(bound 1.000e-04)")
+    check(err <= 1e-4, f"library {call} vs stage2_plain: {err}")
+    return dict(library_ms=timer(fn, reps=5), library_call=call)
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def phase_kernels(torch, device, timer, c_main: int, block: int,
-                  small_cs=(14, 100)) -> dict:
+                  small_cs=(13, 14, 100)) -> dict:
     from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels
     from flydog_sdr_gps_tpu_torch.ops.channelizer import make_ddc_plan
 
@@ -143,8 +210,19 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
                 f"(bound {bound:.3e})")
             check(err <= bound, f"{kname} {name}: {err} > {bound}")
             if main:
+                # y, the taps and (kernel 1) the phase words in, out out;
+                # 2 FMAs a tap and output, 6 operations a rotated sample
+                nbytes = y.numel() * 8 + len(h2) * 4 + k2 * c * 8
+                flops = 4.0 * len(h2) * k2 * c
+                if kname == "stage2_rot":
+                    nbytes += 2 * c * 8
+                    flops += 6.0 * y.numel()
                 out[kname] = dict(max_abs_err=err, ms=timer(fn, reps=10),
-                                  plain_ms=timer(plain, reps=2))
+                                  plain_ms=timer(plain, reps=2),
+                                  library_ms=None, **roofline(nbytes, flops))
+                if kname == "stage2":
+                    out[kname].update(conv1d_library_ms(
+                        torch, timer, y, h2, d2, k2, ref))
             del got, ref
         del y
 
@@ -172,8 +250,13 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     check(err <= 1e-4 * scale, f"agc envelope: {err}")
     check(max_err(g_env, r_env)[0] <= 1e-4 * scale, "agc final env")
     check(bool(torch.equal(g_hang, r_hang)), "agc hang")
-    out["agc_envelope"] = dict(max_abs_err=err, ms=timer(fn, reps=10),
-                               plain_ms=timer(plain, reps=1))
+    # mag_db and the state in, the envelope and the state out; a step is
+    # a compare, two subtract-multiply-adds and two selects
+    out["agc_envelope"] = dict(
+        max_abs_err=err, ms=timer(fn, reps=10), plain_ms=timer(plain, reps=1),
+        library_ms=None,
+        **roofline(2 * mag_db.numel() * 4 + 4 * c_main * 4,
+                8.0 * mag_db.numel()))
 
     # kernel 4: SAM PLL on AM carriers with offsets, plus noise
     sam = demod.SamParams(fs=plan12.fs_out)
@@ -187,16 +270,41 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     z = z.to(torch.complex64)
     ph0 = torch.zeros(c_main, device=device)
     fr0 = torch.zeros(c_main, device=device)
+    ms_ordinary = timer(lambda: demod.sam_pll(sam, z, ph0, fr0), reps=10)
+    # lanes the kernel treats apart from the rest: all zero, zero from
+    # mid-block on, one NaN, one infinity, a carrier beyond the pull-in
+    # limit on either side (freq sits at the +-fmax clamp)
+    lanes = dict(zero=5, turns_zero=37, nan=70, inf=101, clamp_hi=133,
+                 clamp_lo=165)
+    z[:, lanes["zero"]] = 0
+    z[block // 2:, lanes["turns_zero"]] = 0
+    z[block // 3, lanes["nan"]] = complex(float("nan"), 0.5)
+    z[block // 3, lanes["inf"]] = complex(float("inf"), 0.5)
+    z[:, lanes["clamp_hi"]] = torch.polar(torch.ones_like(t), 0.6 * t)[:, 0]
+    z[:, lanes["clamp_lo"]] = torch.polar(torch.ones_like(t), -0.6 * t)[:, 0]
     fn = lambda: demod.sam_pll(sam, z, ph0, fr0)
     plain = lambda: demod.sam_pll_plain(sam, z, ph0, fr0)
     (g_v, g_ph, g_fr), (r_v, r_ph, r_fr) = fn(), plain()
-    err, scale = max_err(g_v, r_v)
+    err, scale = max_err_finite(torch, g_v, r_v, "sam pll v")
     log(f"  sam_pll ({block}, {c_main}) max|err| {err:.3e} "
         f"(bound {1e-4 * scale:.3e})")
     check(err <= 1e-4 * scale, f"sam pll: {err}")
-    check(max_err(g_fr, r_fr)[0] <= 1e-4 * float(sam.fmax), "sam freq")
-    out["sam_pll"] = dict(max_abs_err=err, ms=timer(fn, reps=10),
-                          plain_ms=timer(plain, reps=1))
+    check(max_err_finite(torch, g_fr, r_fr, "sam freq")[0]
+          <= 1e-4 * float(sam.fmax), "sam freq")
+    check(max_err_finite(torch, g_ph, r_ph, "sam phase")[0] <= 1e-4 * math.pi,
+          "sam phase")
+    check(bool(torch.isnan(r_fr[lanes["nan"]]))
+          and abs(float(r_fr[lanes["clamp_hi"]]) - sam.fmax) < 1e-6
+          and abs(float(r_fr[lanes["clamp_lo"]]) + sam.fmax) < 1e-6
+          and not bool(g_v[:, lanes["zero"]].abs().max() > 0),
+          "sam pll: the special lanes are not what they were made to be")
+    # z and the state in, v and the state out; a step is a complex
+    # product, sin, cos and atan2 (one operation each), two FMAs, a clamp,
+    # an add and a wrap
+    out["sam_pll"] = dict(
+        max_abs_err=err, ms=timer(fn, reps=10), plain_ms=timer(plain, reps=1),
+        library_ms=None, ms_ordinary_lanes=ms_ordinary,
+        **roofline(2 * z.numel() * 8 + 4 * c_main * 4, 19.0 * z.numel()))
     return out
 
 
@@ -307,6 +415,7 @@ def phase_slice(torch, device, channels: int, block: int,
         fn.launches = 0                     # the main path's run starts
     fused = []
     ms = run_blocks(torch, eng, nfused, fused)
+    per_block = {k: fn.launches / nfused for k, fn in counters.items()}
     fs = eng.params.fs_out
     block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -315,6 +424,8 @@ def phase_slice(torch, device, channels: int, block: int,
     unfused = []
     ms_unfused = run_blocks(torch, eng, nunfused, unfused)
     launches = {k: fn.launches for k, fn in counters.items()}
+    per_block_unfused = {
+        k: (n - per_block[k] * nfused) / nunfused for k, n in launches.items()}
     del eng                                  # the main path's run ends
     prof_table = None
     if profile:                              # after the counts were read
@@ -322,7 +433,8 @@ def phase_slice(torch, device, channels: int, block: int,
         prof_table = profile_block(torch, eng)
         del eng
 
-    log(f"  launches in the main path's run: {launches}")
+    log(f"  launches in the main path's run: {launches}; per fused block "
+        f"{per_block}, per unfused block {per_block_unfused}")
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched by the main path")
     audio = np.concatenate([a for a, _ in fused])
@@ -350,7 +462,9 @@ def phase_slice(torch, device, channels: int, block: int,
     # wall time, so a stall in the window counts; the median and spread
     # are per-block statistics beside it
     steady = ms[2:] if len(ms) > 2 else ms
-    return dict(launches=launches, ms_median=statistics.median(steady),
+    return dict(launches=launches, launches_per_block=per_block,
+                launches_per_block_unfused=per_block_unfused,
+                ms_median=statistics.median(steady),
                 ms_min=min(steady), ms_max=max(steady),
                 ms_blocks=ms, ms_unfused_blocks=ms_unfused,
                 realtime_factor=len(steady) * block_ms / sum(steady),
@@ -425,8 +539,21 @@ def main(argv: list[str]) -> int:
     log("phase 1: kernels vs plain versions")
     kern = phase_kernels(torch, device, timer, c_main=4096, block=2048)
     for name, r in kern.items():
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        lib = (f"{r['library_call']} {r['library_ms']:.4f} ms (layout change "
+               "not timed)"
+               if r["library_ms"] is not None else "no single library call")
+        if "ms_ordinary_lanes" in r:
+            lib += (f"; {r['ms_ordinary_lanes']:.4f} ms before the special "
+                    "lanes were put in")
         log(f"  {name:<13} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f}"
-            f" ms  [{card}]")
+            f" ms, {lib}; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+            f"(bytes {r['bound_bytes_ms']:.4f}, operations "
+            f"{r['bound_ops_ms']:.4f}), share of bound "
+            f"{r['share_of_bound']:.3f}  [{card}]")
+        # a kernel cannot beat its bound: a share over 1 is a timing fault
+        check(r["share_of_bound"] <= 1.05,
+              f"{name}: {r['ms']} ms is under its bound {r['bound_ms']} ms")
     log("phase 2: DDC tone fidelity")
     ddc = phase_ddc(torch, device, block=2048)
     log("phase 3: the slice, C=4096, audio_block=2048")
@@ -452,8 +579,15 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}/{src}",
              replaces=replaces, launches=sl["launches"][name],
+             launches_per_block=sl["launches_per_block"][name],
+             launches_per_block_unfused=sl[
+                 "launches_per_block_unfused"][name],
              max_abs_err=kern[name]["max_abs_err"], ms=kern[name]["ms"],
-             plain_ms=kern[name]["plain_ms"])
+             plain_ms=kern[name]["plain_ms"],
+             bound_ms=kern[name]["bound_ms"],
+             bound_by=kern[name]["bound_by"],
+             share_of_bound=kern[name]["share_of_bound"],
+             library_ms=kern[name]["library_ms"])
         for name, (src, replaces) in KERNEL_SOURCES.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,16 +12,17 @@ the reference's layout and module names:
 - ``csrc``     — hand-written CUDA kernels, built at first use by
                  ``_build`` (plain ``nvcc``, loaded with ``ctypes``).
 
-The package imports ``torch`` and never ``jax``.  Host-only modules of
-the reference that import no jax (``numerology``, ``ops.filters``,
-``ops.windows``) are imported from it rather than copied.
+The package imports ``torch`` and never ``jax``, and nothing of the
+reference package: ``numerology`` and ``ops.filters`` are its own copies
+of the reference's host-only modules of those names.
 
 Conventions kept from the reference at every public function: signals
 are time-major ``(N, C)``; 48-bit NCO phases are exact.  What changes:
 complex data is ``complex64`` (not split re/im), a phase is one
 ``int64`` word (not three 16-bit limbs), FFTs are ``torch.fft``.
-Every constructor takes an explicit ``device``; tensors on the CPU run
-each kernel's plain PyTorch version, CUDA tensors run the kernel.
+``StreamEngine`` and ``DeviceSceneSource`` run on the card (``device=
+"cuda"``) unless the caller asks for the CPU; tensors on the CPU run each
+kernel's plain PyTorch version, CUDA tensors run the kernel.
 """
 
 __version__ = "0.1.0"

@@ -26,8 +26,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
+# --threads 0: the sources are compiled side by side
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--threads", "0")
 LIB_NAME = "libflydog_kernels.so"
 
 _P = ctypes.c_void_p

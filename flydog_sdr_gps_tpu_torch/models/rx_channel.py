@@ -27,9 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from flydog_sdr_gps_tpu.numerology import (ADC_CLOCK_NOM, AUDIO_BLOCK,
-                                           SND_RATE_12K)
-
+from ..numerology import ADC_CLOCK_NOM, AUDIO_BLOCK, SND_RATE_12K
 from ..ops import agc as agc_ops
 from ..ops import channelizer as chz
 from ..ops import demod as demod_ops

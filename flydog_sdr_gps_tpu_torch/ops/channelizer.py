@@ -30,13 +30,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from flydog_sdr_gps_tpu.numerology import (ADC_CLOCK_NOM, AUDIO_BLOCK,
-                                           DECIM_PLAN_12K, DECIM_PLAN_20K,
-                                           PHASE_BITS, SND_RATE_12K)
-from flydog_sdr_gps_tpu.ops.filters import design_decimation_stages
-
+from ..numerology import (ADC_CLOCK_NOM, AUDIO_BLOCK, DECIM_PLAN_12K,
+                          DECIM_PLAN_20K, PHASE_BITS, SND_RATE_12K)
 from . import kernels
 from . import nco
+from .filters import design_decimation_stages
 
 
 # ---------------------------------------------------------------------------

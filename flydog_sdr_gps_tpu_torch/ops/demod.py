@@ -4,8 +4,10 @@ Port of :mod:`flydog_sdr_gps_tpu.ops.demod` (`rx/rx_sound.cpp:707-987`).
 Everything is elementwise over (N, C) blocks except the SAM PLL, which
 is sequential in time: the reference runs it as a ``lax.scan``
 (`demod.py:183-195`); here it is :func:`sam_pll`, the CUDA kernel
-``sam_pll_c64`` (``csrc/scans.cu``, one thread per channel) for a CUDA
-tensor and its plain PyTorch loop for a tensor on the CPU.
+``sam_pll_c64`` (``csrc/scans.cu``: only the short phase/frequency
+recurrence runs serially, a lane a channel; ``arg(z)`` before it and the
+derotation after it run in parallel over time) for a CUDA tensor and its
+plain PyTorch loop for a tensor on the CPU.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from flydog_sdr_gps_tpu.ops.filters import complex_bandpass
+from .filters import complex_bandpass
 
 FFT_SIZE = 1024          # CONV_FFT_SIZE  (rx/CuteSDR/cuteSDR.h:12)
 NTAPS = 513              # CONV_FIR_SIZE  (rx/CuteSDR/cuteSDR.h:14)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from flydog_sdr_gps_tpu.numerology import PHASE_BITS
+from ..numerology import PHASE_BITS
 
 MASK48 = (1 << PHASE_BITS) - 1
 _MASK24 = (1 << 24) - 1

@@ -12,8 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flydog_sdr_gps_tpu.numerology import ADC_CLOCK_NOM
-
+from ..numerology import ADC_CLOCK_NOM
 from ..ops import nco
 
 
@@ -77,7 +76,7 @@ class DeviceSceneSource:
 
     def __init__(self, tones=(), noise_rms: float = 0.0,
                  adc_clock: float = ADC_CLOCK_NOM, block: int = 512 * 10416,
-                 *, device: torch.device | str, seed: int = 0):
+                 *, device: torch.device | str = "cuda", seed: int = 0):
         self.adc_clock = adc_clock
         self.block = block
         self.ticks = 0

@@ -47,7 +47,7 @@ class StreamEngine:
     block."""
 
     def __init__(self, params: rx.RxParams, source, *,
-                 device: torch.device | str):
+                 device: torch.device | str = "cuda"):
         self.params = params
         self.source = source
         self.device = torch.device(device)

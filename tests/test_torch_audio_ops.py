@@ -260,6 +260,79 @@ def test_sam_matches_reference():
         close(tst.freq, jst.freq, LOOP)
 
 
+def sam_special_input(rng, n, c, lane, kind):
+    """AM carriers with small offsets plus noise; lane ``lane`` is made
+    the case ``kind`` that the CUDA kernel treats apart from the rest."""
+    t = np.arange(n)[:, None]
+    off = rng.uniform(-0.03, 0.03, c)[None]               # rad/sample
+    z = ((1 + 0.5 * np.sin(0.2 * t)) * np.exp(1j * off * t)
+         + 0.02 * (rng.standard_normal((n, c))
+                   + 1j * rng.standard_normal((n, c)))).astype(np.complex64)
+    if kind == "zero":
+        z[:, lane] = 0
+    elif kind == "negative_zero":
+        z[:, lane] = complex(-0.0, 0.0)
+    elif kind == "turns_zero":
+        z[n // 2:, lane] = 0
+    elif kind == "nan":
+        z[n // 3, lane] = complex(np.nan, 0.5)
+    elif kind == "clamp_hi":
+        z[:, lane] = np.exp(0.6j * t[:, 0])
+    elif kind == "clamp_lo":
+        z[:, lane] = np.exp(-0.6j * t[:, 0])
+    else:
+        raise ValueError(kind)
+    return z
+
+
+def close_where_finite(got, ref, rel, msg):
+    """NaN in the same places, and ``close`` everywhere else."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan, err_msg=msg)
+    scale = max(float(np.abs(ref[~nan]).max()), 1e-30)
+    np.testing.assert_allclose(got[~nan], ref[~nan], rtol=0,
+                               atol=rel * scale, err_msg=msg)
+
+
+@pytest.mark.parametrize("kind", ["zero", "negative_zero", "turns_zero",
+                                  "nan", "clamp_hi", "clamp_lo"])
+def test_sam_special_lanes_match_reference(kind):
+    """The plain PLL loop against the reference scan on the lanes for
+    which the CUDA kernel leaves its fast path: an exactly zero sample
+    (atan2 of signed zeros: 0 or +-pi by the quadrant of the phase), a
+    NaN (poisons the lane from there on) and the +-fmax clamp.  Starts
+    from a state with every quadrant of phase; tolerance as
+    ``test_sam_matches_reference``."""
+    params_t, params_j = tdemod.SamParams(fs=FS), jdemod.SamParams(fs=FS)
+    rng = np.random.default_rng(11)
+    n, c, lane = 192, 8, 3
+    phase0 = rng.uniform(-np.pi, np.pi, c).astype(np.float32)
+    freq0 = rng.uniform(-0.05, 0.05, c).astype(np.float32)
+    tst = tdemod.SamState(phase=tc(phase0), freq=tc(freq0),
+                          dc=torch.zeros((2, c)))
+    jst = jdemod.SamState(phase=jnp.asarray(phase0), freq=jnp.asarray(freq0),
+                          dc=jnp.zeros((2, c), jnp.float32))
+    for blk in range(2):
+        z = sam_special_input(rng, n, c, lane, kind)
+        a, v, tst = tdemod.sam_demod(params_t, tc(z), tst)
+        ar, vr, jst = jdemod.sam_demod(params_j, jc(z), jst)
+        vr = np.asarray(vr.re) + 1j * np.asarray(vr.im)
+        close_where_finite(a.numpy(), ar, LOOP, f"{kind} audio, block {blk}")
+        close_where_finite(v.numpy(), vr, LOOP, f"{kind} v, block {blk}")
+        close_where_finite(tst.phase.numpy(), jst.phase, LOOP, f"{kind} phase")
+        close_where_finite(tst.freq.numpy(), jst.freq, LOOP, f"{kind} freq")
+    freq = tst.freq.numpy()[lane]
+    if kind == "nan":
+        assert np.isnan(freq) and np.isnan(v.numpy()[-1, lane])
+        assert np.isfinite(np.delete(v.numpy(), lane, axis=1)).all()
+    elif kind.startswith("clamp"):
+        sign = 1.0 if kind == "clamp_hi" else -1.0
+        assert freq == np.float32(sign * params_t.fmax)
+    elif kind != "turns_zero" or blk:
+        assert not v.numpy()[-1, lane]
+
+
 def test_fm_demod_matches_reference():
     rng = np.random.default_rng(8)
     n, c = 128, 6

@@ -7,8 +7,9 @@ the card's machine (which has no jax, so without this repo's conftest):
 
 Tolerances as in the CPU parity tests: the unfused stage 2 within atol
 1e-4 on unit-variance input, the fused one within 2e-4*max|ref|, the
-AGC and SAM loops within 1e-4*max|ref|; the two stage-2 branches of
-``rx_block`` within 2e-4*max|audio| + 5e-5.
+AGC and SAM loops within 1e-4*max|ref| (where the plain version is
+finite; its NaN and infinities must be matched exactly); the two stage-2
+branches of ``rx_block`` within 2e-4*max|audio| + 5e-5.
 """
 
 import numpy as np
@@ -93,6 +94,92 @@ def test_scan_kernels_match_plain(card):
     ref = demod.sam_pll_plain(sam, z, zero, zero)
     assert float((got[0] - ref[0]).abs().max()) <= 1e-4 * float(
         ref[0].abs().max())
+
+
+@pytest.mark.parametrize("c, k2", [(13, 256), (13, 200), (129, 75),
+                                   (300, 1000)])
+def test_stage2_rot_odd_c_and_ragged_run(card, c, k2):
+    """Kernel 1 (and 2) at an odd channel count, where rows are only
+    8-byte aligned, and at output counts that are no multiple of a
+    block's run of outputs or of its row group."""
+    plan = make_ddc_plan(audio_block=k2)
+    g = _gen(card, 100 * c + k2)
+    kp = plan.k1 + plan.tail2
+    y = torch.complex(torch.randn((kp, c), generator=g, device=card),
+                      torch.randn((kp, c), generator=g, device=card))
+    w = torch.randint(0, 1 << 48, (2, c), generator=g, device=card)
+    got = kernels.stage2_rot(y, w[0], w[1], plan.h2, plan.d2, k2)
+    ref = kernels.stage2_rot_plain(y, w[0], w[1], plan.h2, plan.d2, k2)
+    assert got.shape == (k2, c)
+    assert float((got - ref).abs().max()) <= 2e-4 * float(ref.abs().max())
+    got = kernels.stage2(y, plan.h2, plan.d2, k2)
+    ref = kernels.stage2_plain(y, plan.h2, plan.d2, k2)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _err_where_finite(got, ref):
+    """(max |got - ref|, max |ref|) over the elements where ``ref`` is
+    finite; elsewhere ``got`` must hold the same NaN or infinity."""
+    fin = torch.isfinite(ref)
+    a = torch.view_as_real(got) if got.is_complex() else got
+    b = torch.view_as_real(ref) if ref.is_complex() else ref
+    mask = fin[..., None] if got.is_complex() else fin
+    assert torch.allclose(torch.where(mask, 0.0, a), torch.where(mask, 0.0, b),
+                          rtol=0.0, atol=0.0, equal_nan=True)
+    zero = torch.zeros((), dtype=ref.dtype, device=ref.device)
+    g, r = torch.where(fin, got, zero), torch.where(fin, ref, zero)
+    return float((g - r).abs().max()), float(r.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["zero", "negative_zero", "turns_zero",
+                                  "nan", "inf", "tiny", "clamp_hi",
+                                  "clamp_lo"])
+def test_sam_pll_special_lanes_match_plain(card, kind):
+    """The lanes for which the kernel leaves its fast path (err = arg(z)
+    - phase): exactly zero samples, non-finite and tiny ones, and the
+    +-fmax clamp, from a state with every quadrant of phase, over two
+    blocks with a ragged last tile and a ragged channel edge."""
+    n, c, lane = 200, 45, 7
+    g = _gen(card, 9)
+    sam = demod.SamParams(fs=12_000.0)
+    t = torch.arange(n, device=card, dtype=torch.float32)[:, None]
+    off = torch.empty((1, c), device=card).uniform_(-0.03, 0.03, generator=g)
+    phase = torch.empty(c, device=card).uniform_(-3.14, 3.14, generator=g)
+    freq = torch.empty(c, device=card).uniform_(-0.05, 0.05, generator=g)
+    ph_ref, fr_ref = phase, freq
+    for blk in range(2):
+        z = torch.polar(1 + 0.5 * torch.sin(0.2 * t).expand(n, c), off * t) \
+            + 0.02 * torch.complex(
+                torch.randn((n, c), generator=g, device=card),
+                torch.randn((n, c), generator=g, device=card))
+        z = z.to(torch.complex64)
+        if kind == "zero":
+            z[:, lane] = 0
+        elif kind == "negative_zero":
+            z[:, lane] = complex(-0.0, 0.0)
+        elif kind == "turns_zero":
+            z[n // 2:, lane] = 0
+        elif kind == "nan":
+            z[n // 3, lane] = complex(float("nan"), 0.5)
+        elif kind == "inf":
+            z[n // 3, lane] = complex(float("inf"), 0.5)
+        elif kind == "tiny":
+            z[:, lane] *= 1e-36
+        else:
+            sign = 0.6 if kind == "clamp_hi" else -0.6
+            z[:, lane] = torch.polar(torch.ones_like(t), sign * t)[:, 0]
+        launches = demod.sam_pll.launches
+        v, phase, freq = demod.sam_pll(sam, z, phase, freq)
+        v_ref, ph_ref, fr_ref = demod.sam_pll_plain(sam, z, ph_ref, fr_ref)
+        assert demod.sam_pll.launches == launches + 1
+        err, scale = _err_where_finite(v, v_ref)
+        assert err <= 1e-4 * scale
+        assert _err_where_finite(freq, fr_ref)[0] <= 1e-4 * sam.fmax
+        assert _err_where_finite(phase, ph_ref)[0] <= 1e-4 * np.pi
+    if kind == "nan":
+        assert bool(torch.isnan(freq[lane]))
+    elif kind.startswith("clamp"):
+        assert abs(abs(float(freq[lane])) - sam.fmax) < 1e-6
 
 
 def test_rx_block_branches_agree_on_card(card):
