@@ -15,11 +15,16 @@ What it does, in order (any failed check raises; exit code != 0):
    20.25 kHz plan (d2=4) and at C=13, C=14 and C=100; the AGC envelope
    (kernel 3) and the SAM PLL (kernel 4) at (2048, 4096), the PLL's
    input with lanes that are all zero, turn to zero, hold one NaN, one
-   infinity, or sit at the +-fmax clamp.  Times both, and for kernel 2
-   one library call (``conv1d``) that computes the same function.  Each
-   kernel's time is held against its bound: the larger of its bytes
-   (every input and output once) over 3.35 TB/s and its operations over
-   67 TFLOP/s (the H100 SXM's published float32 peak).
+   infinity, or sit at the +-fmax clamp; the LMS chain (kernel 5) at
+   (2048, 4096) with every combination of enables side by side, timed
+   with every stage on (its row), with those mixed enables, every stage
+   off and one lane on.  Times each kernel twice (with the card kept
+   busy before the timed calls, ``ms``, and without, ``ms_host_paced``)
+   and its plain version, and for kernel 2 one library call
+   (``conv1d``) that computes the same function.  Each kernel's time is
+   held against its bound: the larger of its bytes (every input and
+   output once) over 3.35 TB/s and the operations the function needs
+   over 67 TFLOP/s (the H100 SXM's published float32 peak).
 2. DDC fidelity: a noise-free full-scale tone through ``ddc_block`` —
    right frequency, amplitude ~1.0, SINAD >= 80 dB (a stage-1 matmul
    that quietly ran in TF32 would fail this).
@@ -28,7 +33,26 @@ What it does, in order (any failed check raises; exit code != 0):
    MHz, a carrier at 10.000 MHz, noise 3e-4 rms): an AM channel must hear
    1000 Hz, a USB channel 1800 Hz, empty channels stay quiet, S-meters
    plausible, every tap finite; 8 fused blocks and 2 unfused blocks,
-   with every kernel's launch counter shown to rise in that run.
+   with the launch counters of kernels 1-4 shown to rise in that run.
+4. The serving path: a ``StreamEngine`` at the same size fed by the same
+   scene plus one FSK emitter; 32 subscribed channels spread over the
+   band (AM, USB, one SAM, one with the LMS notch and denoiser on, one
+   with spectral NR on) served by ``run_block_gather`` at bucket 32,
+   then at bucket 64 after ``prewarm_gather(64)`` ran on a thread while
+   blocks went on; the packed array fetched to pinned host memory one
+   block behind and unpacked by the server's layout rule; a
+   ``WfSubsystem`` with four slots (z0, z7, z13, and z14, which needs
+   two blocks an ingest) fed ``engine._last_x`` every block, one row a
+   slot a block.  Checks: the packed columns equal the same columns of
+   ``run_block``'s taps from a second engine with the same seed
+   (exact); the AM lane hears 1000 Hz, the USB lane 1800 Hz; the z0
+   row's three strongest peaks sit at the scene's carriers; the
+   deep-zoom rows centred on 10 MHz peak at their centre; a checkpoint
+   loaded into a new engine gives the uninterrupted engine's next block
+   (exact); kernels 1, 3, 4 and 5 were launched once a served block
+   (the second engine's blocks run before the counters are set to 0);
+   nothing is non-finite; a block with the LMS chain on for every
+   channel stays under the block period.
 
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -37,6 +61,7 @@ error against its plain version, times and bound; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -68,7 +93,12 @@ KERNEL_SOURCES = {
                "flydog_sdr_gps_tpu/ops/pallas_kernels.py:48"),
     "agc_envelope": ("csrc/scans.cu", "flydog_sdr_gps_tpu/ops/agc.py:90"),
     "sam_pll": ("csrc/scans.cu", "flydog_sdr_gps_tpu/ops/demod.py:195"),
+    "lms_chain": ("csrc/lms.cu", "flydog_sdr_gps_tpu/ops/noise.py:296"),
 }
+# the serving scene adds one WSPR-like 4-FSK emitter (8192 audio samples a
+# symbol = 4 blocks, 162 symbols, then idle to 200)
+FSK_TONE = (10.1387e6, 0.10)
+WF_CARRIERS_HZ = (7.100e6, 10.000e6, 14.2018e6)
 
 
 def log(msg: str) -> None:
@@ -88,24 +118,47 @@ def run(cmd: list[str]) -> str:
 
 
 class Timer:
-    """Milliseconds per call: CUDA events around ``reps`` calls."""
+    """Milliseconds per call: CUDA events around ``reps`` calls.
+
+    With ``ahead`` the card is first kept busy by a large matrix product
+    (about 20 ms), so that the host has enqueued every timed call before
+    the first of them starts and the events bracket device time alone: a
+    wrapper's host work (a few launches and a ctypes call, tens of
+    microseconds) otherwise outlasts a short kernel, and the events
+    would time the host.  :meth:`both` gives the two readings side by
+    side: ``ms`` with the card kept busy first, ``ms_host_paced``
+    without (the timer of this script's earlier versions, so that
+    earlier numbers stay comparable)."""
 
     def __init__(self, torch):
         self.torch = torch
+        self._busy = None
 
-    def __call__(self, fn, reps: int = 5, warmup: int = 1) -> float:
+    def __call__(self, fn, reps: int = 5, warmup: int = 1,
+                 ahead: bool = False) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if ahead and self._busy is None:
+            self._busy = torch.zeros((8192, 8192), device="cuda")
         torch.cuda.synchronize()
+        if ahead:
+            torch.matmul(self._busy, self._busy)
         start.record()
         for _ in range(reps):
             fn()
         stop.record()
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / reps
+
+    def both(self, fn, reps: int = 10) -> dict:
+        return dict(ms=self(fn, reps=reps, ahead=True),
+                    ms_host_paced=self(fn, reps=reps))
+
+    def release(self) -> None:
+        self._busy = None
 
 
 def max_err(got, ref) -> tuple[float, float]:
@@ -217,7 +270,7 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
                 if kname == "stage2_rot":
                     nbytes += 2 * c * 8
                     flops += 6.0 * y.numel()
-                out[kname] = dict(max_abs_err=err, ms=timer(fn, reps=10),
+                out[kname] = dict(max_abs_err=err, **timer.both(fn),
                                   plain_ms=timer(plain, reps=2),
                                   library_ms=None, **roofline(nbytes, flops))
                 if kname == "stage2":
@@ -253,8 +306,8 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     # mag_db and the state in, the envelope and the state out; a step is
     # a compare, two subtract-multiply-adds and two selects
     out["agc_envelope"] = dict(
-        max_abs_err=err, ms=timer(fn, reps=10), plain_ms=timer(plain, reps=1),
-        library_ms=None,
+        max_abs_err=err, **timer.both(fn),
+        plain_ms=timer(plain, reps=1), library_ms=None,
         **roofline(2 * mag_db.numel() * 4 + 4 * c_main * 4,
                 8.0 * mag_db.numel()))
 
@@ -270,7 +323,8 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     z = z.to(torch.complex64)
     ph0 = torch.zeros(c_main, device=device)
     fr0 = torch.zeros(c_main, device=device)
-    ms_ordinary = timer(lambda: demod.sam_pll(sam, z, ph0, fr0), reps=10)
+    ms_ordinary = timer(lambda: demod.sam_pll(sam, z, ph0, fr0), reps=10,
+                        ahead=True)
     # lanes the kernel treats apart from the rest: all zero, zero from
     # mid-block on, one NaN, one infinity, a carrier beyond the pull-in
     # limit on either side (freq sits at the +-fmax clamp)
@@ -302,9 +356,77 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     # product, sin, cos and atan2 (one operation each), two FMAs, a clamp,
     # an add and a wrap
     out["sam_pll"] = dict(
-        max_abs_err=err, ms=timer(fn, reps=10), plain_ms=timer(plain, reps=1),
-        library_ms=None, ms_ordinary_lanes=ms_ordinary,
+        max_abs_err=err, **timer.both(fn),
+        plain_ms=timer(plain, reps=1), library_ms=None,
+        ms_ordinary_lanes=ms_ordinary,
         **roofline(2 * z.numel() * 8 + 4 * c_main * 4, 19.0 * z.numel()))
+    del z, g_v, r_v
+
+    # kernel 5: the LMS notch -> denoiser chain on tones in noise, every
+    # combination of enables side by side (channel % 4: both, notch only,
+    # denoiser only, none)
+    from flydog_sdr_gps_tpu_torch.ops import noise
+    pn, pd = noise.LmsParams(notch=True), noise.LmsParams(notch=False)
+    k = torch.arange(c_main, device=device)
+    mixed = ((k % 4 == 0) | (k % 4 == 1), (k % 4 == 0) | (k % 4 == 2))
+    every = torch.ones(c_main, dtype=torch.bool, device=device)
+    enables = {"mixed": mixed, "all_on": (every, every),
+               "all_off": (~every, ~every), "one_lane": (k == 5, k == 5)}
+    f = torch.empty((1, c_main), device=device).uniform_(
+        0.05, 1.0, generator=gen)                     # rad/sample
+    x = 0.3 * torch.sin(f * t) + 0.1 * torch.randn(
+        (block, c_main), generator=gen, device=device)
+    sn, sd = (noise.init_lms(p, c_main, device) for p in (pn, pd))
+    # adapted weights and full delay lines, as in a running receiver
+    _, sn, sd = noise.lms_chain_block(pn, pd, x.flip(0).contiguous(), sn, sd,
+                                      every, every)
+
+    def lms(en, fn=noise.lms_chain_block):
+        return lambda: fn(pn, pd, x, sn, sd, en[0], en[1])
+    (g_y, g_n, g_d), (r_y, r_n, r_d) = lms(mixed)(), lms(
+        mixed, noise.lms_chain_block_plain)()
+    err, scale = max_err(g_y, r_y)
+    log(f"  lms_chain ({block}, {c_main}) mixed enables max|err| {err:.3e} "
+        f"(bound {1e-4 * scale:.3e})")
+    check(err <= 1e-4 * scale, f"lms chain: {err}")
+    for got, ref, what in ((g_n, r_n, "notch"), (g_d, r_d, "denoiser")):
+        check(max_err(got.weights, ref.weights)[0] <= 1e-4, f"lms {what} w")
+        check(max_err(got.line, ref.line)[0] <= 1e-4 * scale,
+              f"lms {what} line")
+    off = ~(mixed[0] | mixed[1])
+    check(bool(torch.equal(g_y[:, off], x[:, off])), "lms: off lanes copy x")
+    ms_by_enables = {name: timer(lms(en), reps=5, ahead=True)
+                     for name, en in enables.items()}
+    # x, both stages' weights and lines and the enables in; y and the
+    # carries out.  Operations that the function needs, a stage that is on:
+    # 5 a tap and sample (2 for the prediction, 3 for the update) and 4 a
+    # sample for the norm, since successive windows differ by one sample
+    # (add the square that enters, take off the one that leaves).  The
+    # kernel itself sums all 64 squares a sample, 7 operations a tap, to
+    # keep the plain version's rounding; that is its choice, not the
+    # function's need.
+    # The row is the case with every stage on.  With mixed enables the
+    # function needs half of that, but the kernel runs a stage for a whole
+    # warp (four channels) if one of them has it on, which with these
+    # enables is every warp: its time is the all-on time, and its bound is
+    # printed beside the row, not as the row.
+    carries = 2 * (pn.taps + pn.taps + pn.delay) * c_main * 4
+    nbytes = 2 * x.numel() * 4 + 2 * carries + 2 * c_main
+    per_stage = (5.0 * pn.taps + 4.0) * block
+
+    def bound(en):
+        return roofline(nbytes,
+                        per_stage * (int(en[0].sum()) + int(en[1].sum())))
+    out["lms_chain"] = dict(
+        max_abs_err=err, ms=ms_by_enables["all_on"],
+        ms_host_paced=timer(lms(enables["all_on"]), reps=5),
+        plain_ms=timer(lms(mixed, noise.lms_chain_block_plain), reps=1,
+                       warmup=0),
+        library_ms=None, ms_by_enables=ms_by_enables,
+        bound_ms_by_enables={name: bound(en)["bound_ms"]
+                             for name, en in enables.items()},
+        **bound(enables["all_on"]))
+    timer.release()
     return out
 
 
@@ -503,6 +625,327 @@ def profile_block(torch, eng) -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the serving path (run_block_gather + fetch + the waterfall)
+# ---------------------------------------------------------------------------
+
+def serve_channels(bucket: int, channels: int) -> np.ndarray:
+    """The subscribed channel numbers: 32 spread over all channels, and
+    for bucket 64 another 32 between them."""
+    stride = channels // 32
+    first = stride * np.arange(32) + stride // 16
+    return (first if bucket == 32
+            else np.concatenate([first, first + stride // 2])
+            ).astype(np.int32)
+
+
+# what the first subscribed lanes listen to; the rest are USB lanes spread
+# over the band
+SERVE_LANES = ("am", "usb", "sam", "lms", "spectral_nr")
+
+
+def make_serve_engine(torch, device, channels: int, block: int):
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.ops import demod
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    params = rx.RxParams(num_channels=channels, audio_block=block)
+    symbols = np.random.default_rng(162).integers(0, 4, 162).tolist()
+    scene = SCENE + [FSK_TONE + (("fsk", 8192, 12000 / 8192, symbols, 200),)]
+    src = DeviceSceneSource(tones=scene, noise_rms=3e-4,
+                            block=params.ddc.adc_block, device=device)
+    eng = StreamEngine(params, src, device=device)
+    subs = serve_channels(64, channels)
+    settings = dict(
+        am=dict(freq_hz=7.100e6, mode=demod.MODE_AM),
+        usb=dict(freq_hz=14.200e6, mode=demod.MODE_USB),
+        sam=dict(freq_hz=7.100e6, mode=demod.MODE_SAM),
+        # the FSK emitter, 1.5 kHz up in a USB lane, notch and denoiser on
+        lms=dict(freq_hz=FSK_TONE[0] - 1500.0, mode=demod.MODE_USB,
+                 nr_notch_on=True, nr_den_on=True),
+        # the 10 MHz carrier as a 1 kHz tone, spectral NR on
+        spectral_nr=dict(freq_hz=9.999e6, mode=demod.MODE_USB, nr_on=True))
+    for ch, name in zip(subs, SERVE_LANES):
+        eng.set_channel(int(ch), in_use=True, **settings[name])
+    for i, ch in enumerate(subs[len(SERVE_LANES):]):
+        # (not 10.0 MHz sharp: that is the control mirror's default, so
+        # set_channel would see no change and leave the bank as built)
+        eng.set_channel(int(ch), freq_hz=1.0003e6 + 0.45e6 * i,
+                        mode=demod.MODE_USB, in_use=True)
+    return eng
+
+
+def unpack(packed: np.ndarray, channels: int, block: int):
+    """The server's layout rule: four (bucket, block) tap sections, the
+    S-meter of every channel, the block's peak."""
+    check(packed.ndim == 1 and packed.dtype == np.float32, "packed type")
+    bucket = (len(packed) - channels - 1) // (4 * block)
+    check(len(packed) == 4 * bucket * block + channels + 1, "packed length")
+    nb = bucket * block
+    rows = [packed[k * nb:(k + 1) * nb].reshape(bucket, block)
+            for k in range(4)]
+    return rows, packed[4 * nb:4 * nb + channels], float(packed[-1])
+
+
+def strongest_peaks(row: np.ndarray, n: int, guard: int = 3) -> list[int]:
+    """Pixels of the n strongest peaks, each with its neighbours taken
+    out before the next is looked for."""
+    row = row.copy()
+    out = []
+    for _ in range(n):
+        px = int(np.argmax(row))
+        out.append(px)
+        row[max(px - guard, 0):px + guard + 1] = -np.inf
+    return sorted(out)
+
+
+def phase_serve(torch, device, timer, channels: int, block: int,
+                n32: int = 8, n64: int = 4, profile: bool = False) -> dict:
+    import threading
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.models import waterfall as wf_model
+    from flydog_sdr_gps_tpu_torch.numerology import (MAX_ZOOM, UI_SRATE_30M,
+                                                     WF_OUT_PX)
+    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels, noise
+    from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+    counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
+                "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
+                "lms_chain": noise.lms_chain_block}
+
+    eng = make_serve_engine(torch, device, channels, block)
+    twin = make_serve_engine(torch, device, channels, block)   # run_block
+    check(eng.tuning.any_lms and eng.tuning.any_spectral_nr,
+          "the NR lanes are not on")
+    wf = WfSubsystem(eng.params.adc_clock, UI_SRATE_30M, capacity=4,
+                     device=device)
+    hz_per_start = UI_SRATE_30M / (WF_OUT_PX << MAX_ZOOM)
+
+    def centred(zoom, cf=10.0e6):
+        span = UI_SRATE_30M / (1 << zoom)
+        return round((cf - span / 2) / hz_per_start)
+    slots = {0: wf.attach(0, 0), 7: wf.attach(7, centred(7)),
+             13: wf.attach(13, centred(13)), 14: wf.attach(14, centred(14))}
+    check(all(s is not None for s in slots.values()), "a slot was refused")
+    check(wf.attach(3, 0) is None, "a fifth chain was handed out")
+    check(slots[14].params.ingest_blocks(eng.params.ddc.adc_block) == 2
+          and slots[13].params.ingest_blocks(eng.params.ddc.adc_block) == 1,
+          "z14 needs two blocks an ingest, z13 one")
+
+    block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
+    nblocks = n32 + n64
+
+    def bucket_of(blk):
+        return 32 if blk < n32 else 64
+    # what the served engine must give, from the twin's run_block, in a
+    # pass of its own so that the serving run's counts are its own
+    wants = []
+    for blk in range(nblocks):
+        taps = twin.run_block()
+        i = torch.as_tensor(serve_channels(bucket_of(blk), channels),
+                            dtype=torch.int64, device=device)
+        want = torch.cat(
+            [t[:, i].T.reshape(-1) for t in (
+                taps.audio, taps.audio2, taps.iq_post_agc.real,
+                taps.iq_post_agc.imag)]
+            + [taps.smeter_dbm, twin._last_x.abs().max().reshape(1)])
+        wants.append(want.cpu().numpy())
+        del taps, want
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0                     # the serving path's run starts
+    ms, audio, rows_seen = [], [], {}
+    pending = None                          # (fetch handle, want, bucket)
+    warm = None
+
+    def settle(entry):
+        handle, want, bucket = entry
+        got = handle.result()
+        check(got.shape == (eng.packed_len(bucket),), "fetched length")
+        check(bool(np.isfinite(got).all()), "non-finite value in a fetch")
+        check(np.array_equal(got, want), "packed columns differ from the "
+              "same columns of run_block's taps")
+        tap_rows, smeter, peak = unpack(got, channels, block)
+        audio.append(tap_rows[0][:len(SERVE_LANES)])
+        return smeter, peak
+
+    for blk in range(nblocks):
+        bucket = bucket_of(blk)
+        idx = serve_channels(bucket, channels)
+        if blk == n32 // 2:                 # off the block loop, as the
+            warm = threading.Thread(        # server does for a new bucket
+                target=eng.prewarm_gather, args=(64,))
+            warm.start()
+        if blk == n32:
+            warm.join()
+        t0 = time.perf_counter()
+        packed = eng.run_block_gather(idx)
+        wf.ingest(eng._last_x)
+        handle = eng.start_fetch(packed)    # copies while the rows are made
+        rows = {z: wf.frame(s) for z, s in slots.items()}
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if pending is not None:             # outside the timed window:
+            settle(pending)                 # the block before
+        pending = (handle, wants[blk], bucket)
+        for z, row in rows.items():
+            check(row.shape == (WF_OUT_PX,) and bool(np.isfinite(row).all()),
+                  f"z{z} row")
+        rows_seen = rows
+    smeter, peak = settle(pending)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del wants                               # the serving path's run ends
+    log(f"  launches in the serving run ({nblocks} served blocks): "
+        f"{launches}")
+    for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain"):
+        check(launches[k] == nblocks, f"kernel {k}: {launches[k]} launches "
+              f"in {nblocks} served blocks, not one a block")
+    check(launches["stage2"] == 0, "the served path is the fused one")
+
+    # what the listeners hear
+    fs = eng.params.fs_out
+    heard = np.concatenate(audio, axis=1)           # (lanes, samples)
+    settled = heard[:, heard.shape[1] // 4:]
+    f_am, f_usb = dominant_hz(settled[0], fs), dominant_hz(settled[1], fs)
+    f_nr = dominant_hz(settled[4], fs)
+    resolution = fs / settled.shape[1]
+    log(f"  AM lane hears {f_am:.1f} Hz, USB lane {f_usb:.1f} Hz, the "
+        f"spectral-NR lane {f_nr:.1f} Hz; LMS lane rms "
+        f"{float(np.sqrt(np.mean(settled[3] ** 2))):.4f}; peak |x| "
+        f"{peak:.4f}")
+    check(abs(f_am - 1000.0) <= 2 * resolution + 5, f"AM hears {f_am}")
+    check(abs(f_usb - 1800.0) <= 2 * resolution + 5, f"USB hears {f_usb}")
+    check(abs(f_nr - 1000.0) <= 2 * resolution + 5, f"NR lane hears {f_nr}")
+    check(0.3 < peak <= 1.0, f"block peak {peak}")
+
+    # what the waterfall shows
+    z0 = rows_seen[0]
+    want_px = sorted(round(f / UI_SRATE_30M * WF_OUT_PX)
+                     for f in WF_CARRIERS_HZ)
+    got_px = strongest_peaks(z0, 3)
+    log(f"  z0 row: strongest peaks at pixels {got_px} (carriers at "
+        f"{want_px}), {[round(float(z0[p]), 1) for p in got_px]} dB, median "
+        f"{float(np.median(z0)):.1f} dB")
+    check(all(abs(g - w) <= 1 for g, w in zip(got_px, want_px)),
+          f"z0 peaks {got_px} are not at the carriers {want_px}")
+    for z in (7, 13, 14):
+        px = int(np.argmax(rows_seen[z]))
+        log(f"  z{z} row centred on 10 MHz peaks at pixel {px} "
+            f"({float(rows_seen[z][px]):.1f} dB, median "
+            f"{float(np.median(rows_seen[z])):.1f} dB)")
+        check(abs(px - WF_OUT_PX // 2) <= 1, f"z{z} peak at pixel {px}")
+    # z14's first row is made before its first ingest is whole
+    check(slots[14].row_seq == 1 + nblocks // 2
+          and slots[13].row_seq == nblocks,
+          "z14 makes a row every other block, z13 every block")
+
+    # checkpoint: a new engine from the snapshot, fed the twin's source
+    # (which stands where the served engine's does), gives the same block
+    out_dir = HERE / "build"
+    out_dir.mkdir(exist_ok=True)
+    path = str(out_dir / "chip_smoke_state.pkl")
+    idx = serve_channels(32, channels)
+    t0 = time.perf_counter()
+    eng.save_state(path)
+    resumed = make_serve_engine(torch, device, channels, block)
+    resumed.load_state(path)
+    resume_s = time.perf_counter() - t0
+    resumed.source = twin.source
+    check(resumed.seq == eng.seq and resumed.block_ticks == eng.block_ticks
+          and resumed.gps_timestamp() == eng.gps_timestamp(),
+          "sequence or timestamp lost in the checkpoint")
+    want = eng.fetch(eng.run_block_gather(idx))
+    got = resumed.fetch(resumed.run_block_gather(idx))
+    # all a listener gets: the tap rows, the peak, and the S-meter of the
+    # channels in use (load_state retunes a channel nobody has tuned to
+    # its control mirror's 10 MHz, as the reference does)
+    used = 4 * 32 * block + serve_channels(64, channels)
+    keep = np.concatenate([np.arange(4 * 32 * block), used, [len(want) - 1]])
+    check(np.array_equal(got[keep], want[keep]), "the block after "
+          "load_state differs from the uninterrupted engine's")
+    log(f"  checkpoint: save + new engine + load {resume_s:.2f} s; the next "
+        "block equals the uninterrupted engine's exactly")
+    del resumed, twin
+
+    # times of the pieces, each alone (CUDA events; pure functions of a
+    # state that is not advanced)
+    x = eng._last_x
+    x2 = torch.cat([x, x])
+    ingest_ms = {}
+    for z, slot in slots.items():
+        xin = x2 if z == 14 else x
+        ingest_ms[z] = timer(lambda: wf_model.wf_ingest(
+            slot.params, slot.state, xin, *slot.tune), reps=3)
+    frame_ms = timer(lambda: wf_model.wf_frame(
+        slots[0].params, slots[0].state, "hanning", "cma"), reps=10)
+    del x2
+    taps_audio = torch.randn((block, channels), device=device)
+    nr_ms = timer(lambda: noise.spectral_nr_block(
+        eng.params.nr, taps_audio, eng.state.nr), reps=3)
+    gather_only = timer(lambda: eng.fetch(torch.zeros(
+        eng.packed_len(32), device=device)), reps=5)
+
+    # the served block with the NR lanes off, then with the LMS chain on
+    # for every channel
+    def served_ms(n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.fetch(eng.run_block_gather(idx))
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+    subs = serve_channels(64, channels)
+    on_ms = served_ms(4)
+    eng.set_channel(int(subs[3]), nr_notch_on=False, nr_den_on=False)
+    lms_off_ms = served_ms(4)
+    eng.set_channel(int(subs[4]), nr_on=False)
+    check(not eng.tuning.any_lms and not eng.tuning.any_spectral_nr,
+          "the NR gates did not close")
+    off_ms = served_ms(4)
+    every = torch.ones(channels, dtype=torch.bool, device=device)
+    eng.tuning = rx.with_gates(dataclasses.replace(
+        eng.tuning, nr_notch_on=every, nr_den_on=every))
+    all_lms_ms = served_ms(3)
+    check(max(all_lms_ms) < block_ms, f"a block with the LMS chain on for "
+          f"every channel took {max(all_lms_ms)} ms of {block_ms}")
+    prof_table = None
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        eng.tuning = rx.with_gates(dataclasses.replace(
+            eng.tuning, nr_notch_on=~every, nr_den_on=~every))
+        eng.set_channel(int(subs[3]), nr_notch_on=True, nr_den_on=True)
+        eng.set_channel(int(subs[4]), nr_on=True)
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            packed = eng.run_block_gather(idx)
+            wf.ingest(eng._last_x)
+            handle = eng.start_fetch(packed)
+            for s in slots.values():
+                wf.frame(s)
+            handle.result()
+            torch.cuda.synchronize()
+        prof_table = prof.key_averages().table(
+            sort_by="cuda_time_total", row_limit=30,
+            max_name_column_width=70)
+
+    steady = ms[2:n32] + ms[n32 + 1:]       # past warm-up and bucket change
+    return dict(
+        launches=launches, blocks=nblocks, ms_blocks=ms,
+        ms_median=statistics.median(steady), ms_min=min(steady),
+        ms_max=max(steady),
+        realtime_factor=len(steady) * block_ms / sum(steady),
+        block_period_ms=block_ms, peak_mem_gb=peak_gb,
+        bytes_fetched={b: eng.packed_len(b) * 4 for b in (32, 64)},
+        fetch_ms_bucket32=gather_only,
+        wf_ingest_ms={f"z{z}": v for z, v in ingest_ms.items()},
+        wf_frame_ms=frame_ms, spectral_nr_ms=nr_ms,
+        served_ms_nr_on=on_ms, served_ms_lms_off=lms_off_ms,
+        served_ms_nr_off=off_ms, served_ms_lms_every_channel=all_lms_ms,
+        am_hz=f_am, usb_hz=f_usb, nr_lane_hz=f_nr, z0_peaks_px=got_px,
+        resume_s=resume_s, profile=prof_table)
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
@@ -546,7 +989,8 @@ def main(argv: list[str]) -> int:
         if "ms_ordinary_lanes" in r:
             lib += (f"; {r['ms_ordinary_lanes']:.4f} ms before the special "
                     "lanes were put in")
-        log(f"  {name:<13} kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f}"
+        log(f"  {name:<13} kernel {r['ms']:.4f} ms ({r['ms_host_paced']:.4f} "
+            f"host-paced), plain {r['plain_ms']:.3f}"
             f" ms, {lib}; bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
             f"(bytes {r['bound_bytes_ms']:.4f}, operations "
             f"{r['bound_ops_ms']:.4f}), share of bound "
@@ -554,6 +998,13 @@ def main(argv: list[str]) -> int:
         # a kernel cannot beat its bound: a share over 1 is a timing fault
         check(r["share_of_bound"] <= 1.05,
               f"{name}: {r['ms']} ms is under its bound {r['bound_ms']} ms")
+    lms = kern["lms_chain"]
+    log(f"  lms_chain (the row above: every stage on) by enables, ms: "
+        f"{lms['ms_by_enables']}; bounds of what the function needs, ms: "
+        f"{lms['bound_ms_by_enables']}  [{card}]")
+    for name, ms in lms["ms_by_enables"].items():
+        check(lms["bound_ms_by_enables"][name] / ms <= 1.05,
+              f"lms_chain {name} is under its bound")
     log("phase 2: DDC tone fidelity")
     ddc = phase_ddc(torch, device, block=2048)
     log("phase 3: the slice, C=4096, audio_block=2048")
@@ -568,8 +1019,32 @@ def main(argv: list[str]) -> int:
         f"unfused: {[round(v, 2) for v in sl['ms_unfused_blocks']]}")
     if sl["profile"]:
         log(sl["profile"])
+    log("phase 4: the serving path, C=4096, audio_block=2048, buckets 32 "
+        "and 64, four waterfall slots")
+    sv = phase_serve(torch, device, timer, channels=4096, block=2048,
+                     profile=profile)
+    log(f"  served block (run_block_gather + 4 waterfall ingests and rows + "
+        f"fetch): median {sv['ms_median']} ms, min {sv['ms_min']}, max "
+        f"{sv['ms_max']}; realtime factor {sv['realtime_factor']} (signal "
+        f"time / wall time of the steady served blocks); peak memory "
+        f"{sv['peak_mem_gb']} GB  [{card}]")
+    log(f"  per-block ms: {[round(v, 2) for v in sv['ms_blocks']]}")
+    log(f"  alone: wf ingest ms by zoom {sv['wf_ingest_ms']} (z14 takes two "
+        f"blocks), wf frame {sv['wf_frame_ms']:.4f} ms, spectral-NR loop "
+        f"{sv['spectral_nr_ms']:.3f} ms, fetch of a bucket-32 array "
+        f"{sv['fetch_ms_bucket32']:.4f} ms; bytes fetched a block "
+        f"{sv['bytes_fetched']}  [{card}]")
+    log(f"  served block without waterfall, ms: NR lanes on "
+        f"{[round(v, 2) for v in sv['served_ms_nr_on']]}, LMS lane off "
+        f"{[round(v, 2) for v in sv['served_ms_lms_off']]}, all NR off "
+        f"{[round(v, 2) for v in sv['served_ms_nr_off']]}, LMS on for every "
+        f"channel {[round(v, 2) for v in sv['served_ms_lms_every_channel']]}"
+        f"  [{card}]")
+    if sv["profile"]:
+        log(sv["profile"])
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
                    slice={k: v for k, v in sl.items() if k != "profile"},
+                   serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
     out_dir = HERE / "build"                # listed in .gitignore
     out_dir.mkdir(exist_ok=True)
@@ -578,11 +1053,16 @@ def main(argv: list[str]) -> int:
     log(card)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}/{src}",
-             replaces=replaces, launches=sl["launches"][name],
-             launches_per_block=sl["launches_per_block"][name],
+             replaces=replaces,
+             launches=sl["launches"].get(name, 0) + sv["launches"][name],
+             launches_slice=sl["launches"].get(name, 0),
+             launches_serve=sv["launches"][name],
+             launches_per_block=sl["launches_per_block"].get(
+                 name, sv["launches"][name] / sv["blocks"]),
              launches_per_block_unfused=sl[
-                 "launches_per_block_unfused"][name],
+                 "launches_per_block_unfused"].get(name),
              max_abs_err=kern[name]["max_abs_err"], ms=kern[name]["ms"],
+             ms_host_paced=kern[name]["ms_host_paced"],
              plain_ms=kern[name]["plain_ms"],
              bound_ms=kern[name]["bound_ms"],
              bound_by=kern[name]["bound_by"],

@@ -5,23 +5,28 @@ unchanged beside it) to PyTorch on an NVIDIA Hopper card.  It mirrors
 the reference's layout and module names:
 
 - ``ops``      — NCO, DDC channelizer, the stage-2 kernels, IIR, S-meter,
-                 FastFIR, AGC, demods, noise blanking / reduction.
-- ``models``   — the receiver block program (``rx_channel``).
-- ``runtime``  — sample sources and the streaming engine.
+                 FastFIR, AGC, demods, noise blanking / reduction,
+                 filter and window design.
+- ``models``   — the receiver block program (``rx_channel``) and the
+                 waterfall (``waterfall``).
+- ``runtime``  — sample sources and the streaming engine (block loop,
+                 the serving path's packed gather and fetch,
+                 checkpointing).
+- ``server``   — the shared waterfall subsystem (``wf_service``).
 - ``convert``  — JAX reference state/tuning (as numpy) -> port tensors.
 - ``csrc``     — hand-written CUDA kernels, built at first use by
                  ``_build`` (plain ``nvcc``, loaded with ``ctypes``).
 
 The package imports ``torch`` and never ``jax``, and nothing of the
-reference package: ``numerology`` and ``ops.filters`` are its own copies
-of the reference's host-only modules of those names.
+reference package: ``numerology``, ``ops.filters`` and ``ops.windows`` are
+its own copies of the reference's host-only modules of those names.
 
 Conventions kept from the reference at every public function: signals
 are time-major ``(N, C)``; 48-bit NCO phases are exact.  What changes:
 complex data is ``complex64`` (not split re/im), a phase is one
 ``int64`` word (not three 16-bit limbs), FFTs are ``torch.fft``.
-``StreamEngine`` and ``DeviceSceneSource`` run on the card (``device=
-"cuda"``) unless the caller asks for the CPU; tensors on the CPU run each
+``StreamEngine``, ``DeviceSceneSource`` and ``WfSubsystem`` run on the
+card (``device="cuda"``) unless the caller asks for the CPU; tensors on the CPU run each
 kernel's plain PyTorch version, CUDA tensors run the kernel.
 """
 

@@ -45,6 +45,11 @@ _SIGNATURES = {
     "agc_envelope_f32": (_P, _P, _P, _P, _I, _I, _F, _F, _I, _P),
     # z, v, phase (in/out), freq (in/out), N, C, g1, g2, fmax, stream
     "sam_pll_c64": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # x, y, w_notch, line_notch, w_den, line_den (all four in/out),
+    # en_notch, en_den (bytes), N, C, taps, delay, decay and mu of the
+    # notch, decay and mu of the denoiser, stream
+    "lms_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _F, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -10,6 +10,10 @@ leaf).  They become the port's tensors on a given device:
   2-tuple) become complex64; ``bank_r``/``bank_i`` become ``bank``;
 - everything else keeps its dtype.
 
+The waterfall's ``WfState`` and its stage-A tuning (``tune``'s
+``(bank_r, bank_i, dphi_limbs)``) convert the same way
+(:func:`wf_state_from_ref`, :func:`wf_tune_from_ref`).
+
 This module imports no jax: the caller converts the reference's arrays
 to numpy first.
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from .models import rx_channel as rx
+from .models import waterfall as wf
 from .ops import agc as agc_ops
 from .ops import channelizer as chz
 from .ops import demod as demod_ops
@@ -117,3 +122,20 @@ def state_from_ref(src, params: rx.RxParams, branch: str,
                               device),
         sb_tail=_complex(_get(src, "sb_tail"), device),
     )
+
+
+def wf_state_from_ref(src, device: torch.device | str) -> wf.WfState:
+    """The reference's waterfall ``WfState`` (numpy leaves) -> port
+    ``WfState``."""
+    return wf.WfState(
+        phi=_words(_get(src, "phi"), device),
+        base_tail=_tensor(_get(src, "base_tail"), device),
+        hb_tails=_complex(_get(src, "hb_tails"), device),
+        ring=_complex(_get(src, "ring"), device))
+
+
+def wf_tune_from_ref(bank_r, bank_i, dphi_limbs, device: torch.device | str
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``waterfall.tune`` result -> the port's (bank
+    (taps,) complex64, dphi () int64)."""
+    return _complex((bank_r, bank_i), device), _words(dphi_limbs, device)

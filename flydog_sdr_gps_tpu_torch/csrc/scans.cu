@@ -10,10 +10,18 @@
 // 0.02-0.04 ms at 3.35 TB/s, while N = 2048 dependent steps cost
 // N * (chain latency) whatever the card's width.
 //
-// agc_envelope_f32: one thread per channel loops over the N samples,
-// carrying its state in registers; 64-thread blocks spread the channels
-// over more SMs; loads are coalesced across channels ((N, C) time-major)
-// and started kUnroll samples ahead of the dependent chain.
+// agc_envelope_f32: the same plan as the PLL below, for a chain that
+// needs no arithmetic outside it.  A block owns 32 channels (one
+// 128-byte line a row) and walks the block in tiles of kAgcRows time
+// rows through a ring of five tiles in shared memory.  One serial warp,
+// a lane a channel, runs the step (compare, subtract, FMA, two selects;
+// the hang counter beside it) over tile t with env and hang in
+// registers, reading mag_db from shared memory and leaving env in its
+// place.  The mover warps keep cp.async copies of tiles t+1 .. t+3 in
+// flight (16 bytes a copy where C % 4 == 0, else 4) and write tile t-1
+// out as coalesced rows, so neither a load from nor a store to device
+// memory is ever waited for by the chain; one barrier a tile.  The
+// chain's floor is about 20 clocks a step, 0.024 ms for 2048 steps.
 //
 // sam_pll_c64: the design takes everything off the chain that does not
 // feed back.  Only (phase, freq) do.  The reference's step is
@@ -50,8 +58,35 @@
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kUnroll = 8;
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::
+               "r"((unsigned)__cvta_generic_to_shared(smem)), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// --- AGC envelope ------------------------------------------------------------
+
+constexpr int kAgcCh = 32;      // channels per block = lanes of the serial warp
+constexpr int kAgcRows = 64;    // time rows per tile
+constexpr int kAgcAhead = 3;    // tiles whose copies are in flight
+constexpr int kAgcRing = kAgcAhead + 2;   // + the tile in the chain, + the
+                                          // tile being written out
+constexpr int kAgcTile = kAgcRows * kAgcCh;
 
 __device__ __forceinline__ void agc_step(float m, float& env, int& hang,
                                          float atk, float dec, int hang_n) {
@@ -62,32 +97,100 @@ __device__ __forceinline__ void agc_step(float m, float& env, int& hang,
   hang = rising ? hang_n : max(hang - 1, 0);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// VEC floats a copy (4 needs C % 4 == 0); MOVERS warps beside the serial one.
+template <int VEC, int MOVERS>
+__global__ void __launch_bounds__(32 + 32 * MOVERS)
 agc_envelope_kernel(const float* __restrict__ mag_db,
                     float* __restrict__ env_seq, float* __restrict__ env_io,
                     int* __restrict__ hang_io, int N, int C, float atk,
                     float dec, int hang_n) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  float env = env_io[c];
-  int hang = hang_io[c];
-  int n = 0;
-  for (; n + kUnroll <= N; n += kUnroll) {
-    float m[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) m[u] = mag_db[(size_t)(n + u) * C + c];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      agc_step(m[u], env, hang, atk, dec, hang_n);
-      env_seq[(size_t)(n + u) * C + c] = env;
+  __shared__ __align__(16) float tiles[kAgcRing][kAgcTile];
+  constexpr int kPerRow = kAgcCh / VEC;
+  constexpr int kCopies = kAgcRows * kPerRow;
+  constexpr int kMovers = 32 * MOVERS;
+
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * kAgcCh;
+  const bool serial = tid < 32;
+  const int mt = tid - 32;                  // index among the movers
+  const int ntiles = (N + kAgcRows - 1) / kAgcRows;
+  const bool live = serial && c0 + tid < C;
+
+  float env = 0.f;
+  int hang = 0;
+  if (live) {
+    env = env_io[c0 + tid];
+    hang = hang_io[c0 + tid];
+  }
+
+  // start the copies of tile t; always one commit group a call
+  auto load = [&](int t) {
+    if (t < ntiles) {
+      float* dst = tiles[t % kAgcRing];
+      for (int e = mt; e < kCopies; e += kMovers) {
+        const int row = e / kPerRow, q = e % kPerRow;
+        const int n = t * kAgcRows + row, c = c0 + q * VEC;
+        if (n < N && c < C) {
+          const float* src = mag_db + (size_t)n * C + c;
+          if (VEC == 4) cp_async16(dst + row * kAgcCh + q * 4, src);
+          else cp_async4(dst + row * kAgcCh + q, src);
+        }
+      }
     }
+    cp_async_commit();
+  };
+  // write tile t, which the chain has passed, as coalesced rows
+  auto store = [&](int t) {
+    const float* src = tiles[t % kAgcRing];
+    for (int e = mt; e < kCopies; e += kMovers) {
+      const int row = e / kPerRow, q = e % kPerRow;
+      const int n = t * kAgcRows + row, c = c0 + q * VEC;
+      if (n < N && c < C) {
+        float* dst = env_seq + (size_t)n * C + c;
+        if (VEC == 4)
+          *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(
+              src + row * kAgcCh + q * 4);
+        else
+          *dst = src[row * kAgcCh + q];
+      }
+    }
+  };
+
+  if (!serial) {
+    for (int t = 0; t < kAgcAhead; ++t) load(t);
+    cp_async_wait<kAgcAhead - 1>();          // tile 0 has landed
   }
-  for (; n < N; ++n) {
-    agc_step(mag_db[(size_t)n * C + c], env, hang, atk, dec, hang_n);
-    env_seq[(size_t)n * C + c] = env;
+  __syncthreads();
+  for (int t = 0; t < ntiles + 1; ++t) {
+    if (serial) {
+      if (t < ntiles) {
+        float* tp = tiles[t % kAgcRing] + tid;
+        const int rows = min(kAgcRows, N - t * kAgcRows);
+        if (rows == kAgcRows) {
+#pragma unroll 16
+          for (int r = 0; r < kAgcRows; ++r) {
+            agc_step(tp[r * kAgcCh], env, hang, atk, dec, hang_n);
+            tp[r * kAgcCh] = env;
+          }
+        } else {
+          for (int r = 0; r < rows; ++r) {
+            agc_step(tp[r * kAgcCh], env, hang, atk, dec, hang_n);
+            tp[r * kAgcCh] = env;
+          }
+        }
+      }
+    } else {
+      load(t + kAgcAhead);
+      if (t >= 1) store(t - 1);
+      cp_async_wait<kAgcAhead - 1>();        // tile t + 1 has landed
+    }
+    __syncthreads();
   }
-  env_io[c] = env;
-  hang_io[c] = hang;
+
+  if (live) {
+    env_io[c0 + tid] = env;
+    hang_io[c0 + tid] = hang;
+  }
 }
 
 // --- SAM PLL ---------------------------------------------------------------
@@ -273,11 +376,20 @@ extern "C" int agc_envelope_f32(const void* mag_db, void* env_seq,
                                 float atk, float dec, int hang_n,
                                 void* stream) {
   if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  agc_envelope_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mag_db), static_cast<float*>(env_seq),
-      static_cast<float*>(env), static_cast<int*>(hang), N, C, atk, dec,
-      hang_n);
+  const int blocks = (C + kAgcCh - 1) / kAgcCh;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* in = static_cast<const float*>(mag_db);
+  float* out = static_cast<float*>(env_seq);
+  float* e = static_cast<float*>(env);
+  int* h = static_cast<int*>(hang);
+  // 16-byte copies need rows that start on 16 bytes
+  if (C % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(out) % 16 == 0)
+    agc_envelope_kernel<4, 3><<<blocks, 128, 0, st>>>(in, out, e, h, N, C, atk,
+                                                      dec, hang_n);
+  else
+    agc_envelope_kernel<1, 7><<<blocks, 256, 0, st>>>(in, out, e, h, N, C, atk,
+                                                      dec, hang_n);
   return (int)cudaGetLastError();
 }
 

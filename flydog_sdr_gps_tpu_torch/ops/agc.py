@@ -5,7 +5,8 @@ look-ahead delay line, log-domain envelope follower with attack/decay
 and hang, knee/slope gain law.  The envelope follower is sequential in
 time; the reference runs it as a ``lax.scan`` (`agc.py:72-91`).  Here it
 is :func:`envelope_scan`: the CUDA kernel ``agc_envelope_f32``
-(``csrc/scans.cu``, one thread per channel) for a CUDA tensor, its plain
+(``csrc/scans.cu``: a serial warp on a shared-memory tile ring that
+mover warps fill and drain) for a CUDA tensor, its plain
 PyTorch loop for a tensor on the CPU.
 """
 

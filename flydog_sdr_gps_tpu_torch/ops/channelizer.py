@@ -183,6 +183,17 @@ def frame(x: torch.Tensor, d: int, m: int) -> torch.Tensor:
     return x.unfold(0, m * d, d)
 
 
+def require_full_float32(t: torch.Tensor, what: str) -> None:
+    """Raise if ``t`` is on a card and the process lets float32 matmuls
+    run in TF32 (three decimal digits: it costs the 80 dB SINAD)."""
+    if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32
+                      or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            f"{what} needs full float32 matmuls: set torch.backends.cuda."
+            "matmul.allow_tf32 = False and torch.set_float32_matmul_"
+            "precision('highest') (TF32 costs the 80 dB SINAD)")
+
+
 def stage1_matmul(plan: DDCPlan, x_ext: torch.Tensor, bank: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """The stage-1 filter-bank matmul WITHOUT the NCO rotation.
@@ -192,13 +203,7 @@ def stage1_matmul(plan: DDCPlan, x_ext: torch.Tensor, bank: torch.Tensor,
     buffer) the product is written there in place.  Full float32: on a
     CUDA tensor it raises if the process lets matmuls use TF32.
     """
-    if x_ext.is_cuda and (torch.backends.cuda.matmul.allow_tf32
-                          or torch.get_float32_matmul_precision()
-                          != "highest"):
-        raise RuntimeError(
-            "stage 1 needs full float32 matmuls: set torch.backends.cuda."
-            "matmul.allow_tf32 = False and torch.set_float32_matmul_"
-            "precision('highest') (TF32 costs the 80 dB SINAD)")
+    require_full_float32(x_ext, "stage 1")
     frames = frame(x_ext, plan.d1, plan.m1)            # (k1, L1) view
     l1, c = bank.shape
     b = torch.view_as_real(bank).reshape(l1, 2 * c)

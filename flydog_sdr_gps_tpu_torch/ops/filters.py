@@ -129,3 +129,25 @@ def design_decimation_stages(fs: float, decims: Sequence[int],
         taps.append(h)
         rate = out_rate
     return taps
+
+
+def halfband(atten_db: float = 90.0, numtaps: int | None = None) -> np.ndarray:
+    """Decimate-by-2 halfband lowpass (every other tap zero except center).
+
+    Used by the waterfall zoom cascade (decimation = 2**zoom, reference
+    `verilog/rx/waterfall_1cic.v` uses a 1-stage CIC; we use halfbands
+    for a flat passband over the displayed 1024 px span).
+    """
+    if numtaps is None:
+        # quarter-band transition: passband to 0.22 fs, stop from 0.28 fs
+        numtaps = kaiser_numtaps(atten_db, 0.06, 1.0)
+        numtaps |= 1                     # odd
+        if numtaps % 4 == 1:
+            numtaps += 2                 # N % 4 == 3 gives true halfband
+    h = sp_signal.firwin(numtaps, 0.5, window=("kaiser", kaiser_beta(atten_db)))
+    # force exact halfband structure: odd taps (except center) to zero
+    mid = numtaps // 2
+    h2 = np.zeros_like(h)
+    h2[::2] = h[::2]
+    h2[mid] = 0.5
+    return h2 / np.sum(h2)

@@ -1,7 +1,9 @@
 """Streaming runtime of the port: sample sources and the block engine."""
 
-from .source import DeviceSceneSource, SampleSource, SyntheticSource
-from .stream import ChannelCtl, StreamEngine
+from .source import (BlockRing, DeviceSceneSource, FileSource, Int24FileSource,
+                     SampleSource, SyntheticSource, ThreadedSource)
+from .stream import ChannelCtl, PackedFetch, StreamEngine
 
-__all__ = ["ChannelCtl", "DeviceSceneSource", "SampleSource",
-           "StreamEngine", "SyntheticSource"]
+__all__ = ["BlockRing", "ChannelCtl", "DeviceSceneSource", "FileSource",
+           "Int24FileSource", "PackedFetch", "SampleSource", "StreamEngine",
+           "SyntheticSource", "ThreadedSource"]

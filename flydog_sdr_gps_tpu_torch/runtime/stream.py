@@ -3,14 +3,21 @@
 Port of the block loop and control plane of
 :mod:`flydog_sdr_gps_tpu.runtime.stream`: one block program advances
 every channel; the host keeps the sequence accounting, the 48-bit block
-timestamps, the NaN health check and the fan-out to subscribers.  (The
-server's fused gather, its prewarm and checkpointing are not ported
-yet.)
+timestamps, the NaN health check and the fan-out to subscribers.
+
+The serving path is :meth:`StreamEngine.run_block_gather`: it advances
+the block and packs only the subscribed channels' tap columns into one
+flat float32 tensor on the device (the reference's layout, so the
+server unpacks it unchanged), which :meth:`StreamEngine.start_fetch`
+copies to pinned host memory without blocking, so that the copy runs
+while the next block is computed.  :meth:`save_state` and
+:meth:`load_state` checkpoint the streaming state.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Callable
 
 import numpy as np
@@ -58,6 +65,18 @@ class StreamEngine:
         self.block_ticks = 0            # 48-bit tick of block start
         self.subscribers: list[Callable] = []
         self.resets = 0
+        self._last_x: torch.Tensor | None = None   # raw block (waterfall)
+        # host buffers of the packed fetch: two, used in turns, made once
+        # at the largest bucket's length (pinning memory stalls the card,
+        # so it is kept off the block loop) and sliced for smaller ones
+        bucket = 1
+        while bucket < params.num_channels:
+            bucket *= 2
+        self._fetch_bufs = [
+            torch.empty(self.packed_len(bucket), dtype=torch.float32,
+                        pin_memory=self.device.type == "cuda")
+            for _ in range(2)]
+        self._fetch_turn = 0
 
     # -- control plane ---------------------------------------------------
     def set_channel(self, ch: int, **kwargs) -> None:
@@ -108,16 +127,22 @@ class StreamEngine:
             dphi1=torch.as_tensor(dphi, device=self.device))
 
     # -- data plane ------------------------------------------------------
-    def run_block(self) -> rx.RxTaps:
-        """Pull one source block through the pipeline; fan out."""
+    def _advance(self) -> tuple[torch.Tensor, rx.RxTaps]:
+        """One source block through the block program."""
         ticks = getattr(self.source, "ticks", 0)
         x = self.source.next_block(self.params.ddc.adc_block)
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x).to(self.device)
+        self._last_x = x            # raw block for waterfall taps
         self.state, taps = rx.rx_block(self.params, self.state, self.tuning,
                                        x)
         self.block_ticks = ticks
         self.seq += 1
+        return x, taps
+
+    def run_block(self) -> rx.RxTaps:
+        """Pull one source block through the pipeline; fan out."""
+        _, taps = self._advance()
         if self.seq % 64 == 0:          # cheap periodic health check
             if not bool(torch.isfinite(taps.audio).all()):
                 self.reset_streaming_state()
@@ -125,7 +150,170 @@ class StreamEngine:
             fn(self, taps)
         return taps
 
+    def run_block_gather(self, idx: np.ndarray) -> torch.Tensor:
+        """The serving path: advance the block AND pack the subscribed
+        channels' tap columns on the device.
+
+        idx: (bucket,) channel numbers.  Returns ONE flat float32 tensor
+        on the device, ``[audio rows | audio2 rows | iq_re rows | iq_im
+        rows | smeter(C) | peak]``, each tap's subscriber columns
+        transposed to (bucket, block) row-major, so that one host fetch
+        brings everything a block's listeners need and each channel's
+        audio is contiguous for the batched ADPCM encode.  ``peak`` is
+        max|x| of the raw block.  Like the reference's fused program,
+        this path runs no NaN health check and no subscriber fan-out.
+        """
+        x, taps = self._advance()
+        i = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+                            device=self.device)
+        iq = taps.iq_post_agc.index_select(1, i)
+        cols = [a.T.reshape(-1)
+                for a in (taps.audio.index_select(1, i),
+                          taps.audio2.index_select(1, i), iq.real, iq.imag)]
+        return torch.cat(cols + [taps.smeter_dbm,
+                                 x.abs().max().reshape(1)])
+
+    def packed_len(self, bucket: int) -> int:
+        """Floats in :meth:`run_block_gather`'s result for one bucket."""
+        p = self.params
+        return 4 * bucket * p.audio_block + p.num_channels + 1
+
+    def prewarm_gather(self, bucket: int) -> None:
+        """Prepare the serving path for one bucket size off the block
+        loop.  Nothing is left to prepare: there is no program to
+        compile, and the host buffers were pinned at the largest
+        bucket's length when the engine was made.  Kept because the
+        server calls it from a thread before it serves a new bucket; it
+        touches no engine state.
+        """
+
+    def start_fetch(self, packed: torch.Tensor) -> "PackedFetch":
+        """Begin copying a packed tensor to the host without blocking.
+
+        On the card the copy goes into pinned memory on the current
+        stream, followed by an event, so it overlaps whatever is
+        enqueued next (the next block).  ``.result()`` of the returned
+        handle waits for that event only and gives a 1-D float32 numpy
+        array.  The two host buffers are used in turns: a handle's
+        result must be taken before the second fetch after it starts.
+        """
+        buf = self._fetch_bufs[self._fetch_turn][:packed.numel()]
+        if buf.numel() != packed.numel():
+            raise ValueError(f"{packed.numel()} floats are more than the "
+                             "largest bucket's packed length")
+        self._fetch_turn ^= 1
+        buf.copy_(packed, non_blocking=True)
+        event = None
+        if packed.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(packed.device))
+        return PackedFetch(buf, event)
+
+    def fetch(self, packed: torch.Tensor) -> np.ndarray:
+        """The packed tensor on the host (the counterpart of the
+        reference server's ``jax.device_get`` of the fused result)."""
+        return self.start_fetch(packed).result()
+
     def reset_streaming_state(self) -> None:
         """Full streaming-state reset (data-pump reset analogue)."""
         self.state = rx.init_state(self.params, self.device)
         self.resets += 1
+
+    # -- checkpoint / resume --------------------------------------------
+    # The reference firmware persists only JSON config; like the
+    # reference package, the port can also snapshot the full streaming
+    # state so a restarted server resumes mid-stream without filter
+    # warm-up glitches.
+    def save_state(self, path: str) -> None:
+        """Snapshot the streaming state (numpy leaves), the sequence
+        accounting and the control mirrors."""
+        leaves = [t.cpu().numpy() for t in _state_leaves(self.state)]
+        with open(path, "wb") as f:
+            pickle.dump(dict(leaves=leaves, seq=self.seq,
+                             block_ticks=self.block_ticks, ctl=self.ctl), f)
+
+    def load_state(self, path: str) -> None:
+        """Resume from a snapshot that :meth:`save_state` wrote (a
+        pickle: load only files this program wrote)."""
+        with open(path, "rb") as f:
+            snap = pickle.load(f)
+        leaves = iter(snap["leaves"])
+        self.state = _state_like(
+            rx.init_state(self.params, self.device),
+            lambda ref: torch.as_tensor(next(leaves), device=self.device))
+        self.seq = snap["seq"]
+        self.block_ticks = snap["block_ticks"]
+        # Rebuild the device tuning from the restored control mirrors.
+        # As in the reference, the mirrors keep freq, mode, passband,
+        # AGC, squelch, nb_on, the three NR switches and in_use; nb_wild,
+        # deemph_on and mute_over_dbm come back at their defaults.  The
+        # tuning is built for all channels at once (the reference walks
+        # set_channel per channel, which gives the same tensors).
+        keep = ("freq_hz", "mode", "passband", "agc_on", "manual_gain_db",
+                "squelch", "nb_on", "nr_on", "nr_notch_on", "nr_den_on",
+                "in_use")
+        self.ctl = [ChannelCtl(**{k: getattr(c, k) for k in keep})
+                    for c in snap["ctl"]]
+        self.tuning = self._tuning_from_ctl()
+
+    def _tuning_from_ctl(self) -> rx.RxTuning:
+        """The tuning that ``set_channel`` calls for every field of every
+        control mirror would leave behind."""
+        ctl = self.ctl
+        t = rx.default_tuning(
+            self.params, self.device, freqs_hz=[c.freq_hz for c in ctl],
+            modes=[c.mode for c in ctl],
+            passbands=[tuple(c.passband or rx._default_passband(c.mode))
+                       for c in ctl])
+
+        def col(values, dtype):
+            return torch.as_tensor(np.asarray(values, dtype),
+                                   device=self.device)
+        return rx.with_gates(dataclasses.replace(
+            t,
+            manual_gain_db=col([np.nan if c.agc_on else c.manual_gain_db
+                                for c in ctl], np.float32),
+            squelch_thresh=col([c.squelch for c in ctl], np.float32),
+            nb_on=col([c.nb_on for c in ctl], bool),
+            nb_wild=col([c.nb_wild for c in ctl], bool),
+            deemph_on=col([c.deemph_on for c in ctl], bool),
+            mute_over_dbm=col([c.mute_over_dbm for c in ctl], np.float32),
+            nr_on=col([c.nr_on for c in ctl], bool),
+            nr_notch_on=col([c.nr_notch_on for c in ctl], bool),
+            nr_den_on=col([c.nr_den_on for c in ctl], bool)))
+
+    # -- timestamps ------------------------------------------------------
+    def gps_timestamp(self, clock_hz: float | None = None
+                      ) -> tuple[int, float]:
+        """(48-bit ticks, seconds) of the current block start; feeds
+        the GPS-timestamped IQ headers (`rx/rx_sound.cpp:654-661`)."""
+        clk = clock_hz or self.params.adc_clock
+        return self.block_ticks, self.block_ticks / clk
+
+
+class PackedFetch:
+    """A host copy in flight (see :meth:`StreamEngine.start_fetch`)."""
+
+    def __init__(self, buf: torch.Tensor, event):
+        self._buf = buf
+        self._event = event
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._buf.numpy().copy()
+
+
+def _state_like(ref, leaf):
+    """A state shaped like ``ref`` (nested dataclasses of tensors) whose
+    tensors are ``leaf(ref_tensor)``, taken in field order."""
+    if isinstance(ref, torch.Tensor):
+        return leaf(ref)
+    return type(ref)(**{f.name: _state_like(getattr(ref, f.name), leaf)
+                        for f in dataclasses.fields(ref)})
+
+
+def _state_leaves(state) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    _state_like(state, lambda t: out.append(t) or t)
+    return out

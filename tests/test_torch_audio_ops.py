@@ -386,3 +386,47 @@ def test_lms_chain_matches_reference():
                                               jnp.asarray(en_d))
         close(y, yr, LOOP, f"block {blk}")
         close(tsd.weights, jsd.weights, LOOP)
+
+
+@pytest.mark.parametrize("on_notch, on_den", [(True, True), (True, False),
+                                              (False, True), (False, False)])
+def test_lms_plain_version_matches_reference_scan(on_notch, on_den):
+    """The plain version of the LMS kernel against the JAX scan, every
+    combination of enables beside a channel of the opposite setting, over
+    three blocks; a disabled stage passes through and keeps its weights,
+    but its delay line advances."""
+    tn, td = tnoise.LmsParams(notch=True), tnoise.LmsParams(notch=False)
+    jn, jd = jnoise.LmsParams(notch=True), jnoise.LmsParams(notch=False)
+    rng = np.random.default_rng(21)
+    c, n = 3, 96
+    en_n = np.array([on_notch, not on_notch, on_notch])
+    en_d = np.array([on_den, not on_den, on_den])
+    tsn, tsd = tnoise.init_lms(tn, c, "cpu"), tnoise.init_lms(td, c, "cpu")
+    jsn, jsd = jnoise.init_lms(jn, c), jnoise.init_lms(jd, c)
+    for blk in range(3):
+        t = (np.arange(n)[:, None] + n * blk) / FS
+        x = (np.sin(2 * np.pi * np.array([1000.0, 440.0, 2500.0]) * t)
+             + 0.3 * rng.standard_normal((n, c))).astype(np.float32)
+        y, tsn, tsd = tnoise.lms_chain_block_plain(
+            tn, td, tc(x), tsn, tsd, tc(en_n), tc(en_d))
+        yr, jsn, jsd = jnoise.lms_chain_block(
+            jn, jd, jnp.asarray(x), jsn, jsd, jnp.asarray(en_n),
+            jnp.asarray(en_d))
+        close(y, yr, LOOP, f"block {blk}")
+        for got, ref in ((tsn, jsn), (tsd, jsd)):
+            close(got.weights, ref.weights, LOOP, scale=1.0)
+            close(got.line, ref.line, LOOP)
+        if not on_notch:
+            assert not tsn.weights[:, 0].any()
+            np.testing.assert_array_equal(tsn.line[-n:, 0].numpy()[-80:],
+                                          x[-80:, 0])
+        if not (on_notch or on_den):
+            np.testing.assert_array_equal(y[:, 0].numpy(), x[:, 0])
+    # on the CPU the wrapper is the plain version, and counts no launch
+    before = tnoise.lms_chain_block.launches
+    y2, _, _ = tnoise.lms_chain_block(tn, td, tc(x), tsn, tsd, tc(en_n),
+                                      tc(en_d))
+    y3, _, _ = tnoise.lms_chain_block_plain(tn, td, tc(x), tsn, tsd,
+                                            tc(en_n), tc(en_d))
+    assert torch.equal(y2, y3)
+    assert tnoise.lms_chain_block.launches == before

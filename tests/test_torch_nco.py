@@ -76,3 +76,39 @@ def test_words_from_limbs_round_trip():
     rng = np.random.default_rng(5)
     w = _random_words(rng, 16)
     assert tnco.words_from_limbs(jnco.to_limbs(w)).tolist() == w
+
+
+def test_ramp_words_at_the_waterfall_length():
+    """One serving block at decimation 4 is a ramp of 5,332,992 rows:
+    the reference cuts it into chunks (``phase_ramp_long``) because its
+    int32 limb scale is bounded; the port's ``ramp_words`` has no limit.
+    A naive int64 ``k * dphi`` overflows here (2**23 * 2**48).  Words
+    bit-exact against the limb functions, chunk by chunk."""
+    num = 2048 * 10416 // 4
+    assert num == 5_332_992
+    rng = np.random.default_rng(11)
+    phi0 = int(rng.integers(0, M48, dtype=np.uint64))
+    dphi = M48 - 12345                         # the largest products
+    got = tnco.ramp_words(_words([phi0])[0], _words([dphi])[0], num)
+    assert got.shape == (num,) and got.dtype == torch.int64
+    got = got.numpy()
+    d_limbs = jnp.asarray(jnco.to_limbs([dphi])[0])
+    step = jnco.MAX_RAMP
+    assert step < num
+    for start in list(range(0, num, step))[::8] + [num - num % step]:
+        n = min(step, num - start)
+        p_limbs = jnp.asarray(
+            jnco.to_limbs([(phi0 + start * dphi) % M48])[0])
+        ref = jnco.from_limbs(np.asarray(jnco.limb_add(
+            p_limbs[None], jnco.limb_scale(
+                d_limbs[None], jnp.arange(n, dtype=jnp.int32)[:, None]))))
+        assert got[start:start + n].tolist() == \
+            np.asarray(ref).reshape(-1).tolist()
+    # the float32 cycles are those of the reference's long ramp
+    cyc = np.asarray(jnco.phase_ramp_long(
+        jnp.asarray(jnco.to_limbs([phi0])[0]), d_limbs, num))
+    np.testing.assert_allclose(
+        tnco.to_cycles(torch.from_numpy(got)).numpy(), cyc, rtol=0,
+        atol=2.0 ** -24)
+    assert int(tnco.advance(_words([phi0])[0], _words([dphi])[0], num)) \
+        == (phi0 + num * dphi) % M48

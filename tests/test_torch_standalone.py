@@ -1,15 +1,17 @@
 """The port stands on its own: it imports neither jax nor anything of the
 reference package, and its copies of the reference's host-only modules
-(``numerology``, ``ops.filters``) agree with the originals.
+(``numerology``, ``ops.filters``, ``ops.windows``) agree with the
+originals.
 
 - a subprocess whose import system refuses ``jax``, ``jaxlib`` and
   ``flydog_sdr_gps_tpu`` imports every module of the port and runs two
-  ``StreamEngine`` blocks on the CPU (C=8, audio_block=256);
+  ``StreamEngine`` blocks on the CPU (C=8, audio_block=256), then one
+  ``run_block_gather`` and one waterfall row from that block;
 - a source scan finds no ``import``/``from`` of either in the port's
   package or ``chip_smoke.py``;
 - every public constant of ``numerology`` is equal, and the filter
   designers the port calls give bit-equal taps for both decimation plans
-  and three passbands.
+  and three passbands; ``halfband`` and every window are bit-equal too.
 """
 
 import dataclasses
@@ -25,8 +27,10 @@ import pytest
 
 from flydog_sdr_gps_tpu import numerology as jnum
 from flydog_sdr_gps_tpu.ops import filters as jfilters
+from flydog_sdr_gps_tpu.ops import windows as jwindows
 from flydog_sdr_gps_tpu_torch import numerology as tnum
 from flydog_sdr_gps_tpu_torch.ops import filters as tfilters
+from flydog_sdr_gps_tpu_torch.ops import windows as twindows
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "flydog_sdr_gps_tpu_torch"
@@ -57,7 +61,10 @@ def test_port_runs_without_jax_and_reference_package():
             port.__path__, port.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 15, names
+        assert len(names) >= 20, names
+        for wanted in ("models.waterfall", "server.wf_service",
+                       "ops.windows"):
+            assert f"{port.__name__}.{wanted}" in names, wanted
 
         from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
         from flydog_sdr_gps_tpu_torch.ops import demod
@@ -74,6 +81,20 @@ def test_port_runs_without_jax_and_reference_package():
             assert taps.audio.shape == (256, 8)
             assert bool(torch.isfinite(taps.audio).all())
         assert float(taps.audio[:, 0].abs().max()) > 1e-3
+
+        # the serving path and one waterfall row from the same block
+        import numpy as np
+        from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+        packed = eng.fetch(eng.run_block_gather(np.array([1, 0], np.int32)))
+        assert packed.shape == (4 * 2 * 256 + 8 + 1,)
+        assert packed.dtype == np.float32 and np.isfinite(packed).all()
+        wf = WfSubsystem(params.adc_clock, 30.0e6, capacity=1, device="cpu")
+        slot = wf.attach(0, 0)
+        wf.ingest(eng._last_x)
+        row = wf.frame(slot)
+        assert row.shape == (1024,) and np.isfinite(row).all()
+        want_px = round(7.1e6 / 30.0e6 * 1024)
+        assert abs(int(np.argmax(row)) - want_px) <= 1, int(np.argmax(row))
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("STANDALONE-OK")
     """)
@@ -95,7 +116,8 @@ def test_entry_points_default_to_the_card():
     import inspect
     from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
                                                   StreamEngine)
-    for cls in (StreamEngine, DeviceSceneSource):
+    from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+    for cls in (StreamEngine, DeviceSceneSource, WfSubsystem):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
 
 
@@ -143,3 +165,34 @@ def test_complex_bandpass_copy_is_bit_equal(fs, passband):
         jfilters.complex_bandpass(fs, *passband, 90.0, 513))
     for fn in ("kaiser_beta", "kaiser_numtaps", "kaiser_lowpass"):
         assert hasattr(tfilters, fn)
+
+
+@pytest.mark.parametrize("atten, numtaps", [(80.0, None), (90.0, None),
+                                            (60.0, 31)])
+def test_halfband_copy_is_bit_equal(atten, numtaps):
+    got = tfilters.halfband(atten, numtaps)
+    np.testing.assert_array_equal(got, jfilters.halfband(atten, numtaps))
+    mid = len(got) // 2
+    # a true halfband: of the odd taps only the centre is not zero
+    assert len(got) % 4 == 3 and mid % 2 == 1
+    assert np.count_nonzero(got[1::2]) == 1 and got[mid] > 0.4
+
+
+@pytest.mark.parametrize("kind", [jwindows.HANNING, jwindows.HAMMING,
+                                  jwindows.BLACKMAN_HARRIS,
+                                  jwindows.RECTANGULAR])
+def test_windows_copy_is_bit_equal(kind):
+    assert (twindows.HANNING, twindows.HAMMING, twindows.BLACKMAN_HARRIS,
+            twindows.RECTANGULAR) == (jwindows.HANNING, jwindows.HAMMING,
+                                      jwindows.BLACKMAN_HARRIS,
+                                      jwindows.RECTANGULAR)
+    for n in (8, 1000, 8192):
+        for periodic in (True, False):
+            got = twindows.window(kind, n, periodic)
+            ref = jwindows.window(kind, n, periodic)
+            np.testing.assert_array_equal(got, ref)
+            assert got.dtype == np.float32
+        assert twindows.coherent_gain(got) == jwindows.coherent_gain(ref)
+        assert twindows.noise_bandwidth(got) == jwindows.noise_bandwidth(ref)
+    with pytest.raises(ValueError):
+        twindows.window("welch", 8)

@@ -30,6 +30,7 @@ from flydog_sdr_gps_tpu.runtime import stream as jstream
 from flydog_sdr_gps_tpu_torch import _build
 from flydog_sdr_gps_tpu_torch.models import rx_channel as trx
 from flydog_sdr_gps_tpu_torch.ops import agc, demod as tdemod, kernels
+from flydog_sdr_gps_tpu_torch.ops import noise as tnoise
 from flydog_sdr_gps_tpu_torch.runtime import source as tsource
 from flydog_sdr_gps_tpu_torch.runtime import stream as tstream
 
@@ -222,7 +223,8 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
     h2 = np.ones(100)
     w = torch.zeros(8, dtype=torch.int64, **meta)
     before = (kernels.stage2.launches, kernels.stage2_rot.launches,
-              agc.envelope_scan.launches, tdemod.sam_pll.launches)
+              agc.envelope_scan.launches, tdemod.sam_pll.launches,
+              tnoise.lms_chain_block.launches)
     with pytest.raises(RuntimeError, match="no kernel"):
         kernels.stage2(y, h2, 4, 4)
     with pytest.raises(RuntimeError, match="no kernel"):
@@ -234,12 +236,21 @@ def test_wrappers_raise_off_cpu_instead_of_falling_back():
         tdemod.sam_pll(tdemod.SamParams(),
                        torch.empty((4, 8), dtype=torch.complex64, **meta),
                        torch.empty(8, **meta), torch.empty(8, **meta))
+    lms = tnoise.LmsParams()
+    st = tnoise.LmsState(weights=torch.empty((64, 8), **meta),
+                         line=torch.empty((80, 8), **meta))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tnoise.lms_chain_block(lms, lms, torch.empty((4, 8), **meta), st, st,
+                               torch.empty(8, dtype=torch.bool, **meta),
+                               torch.empty(8, dtype=torch.bool, **meta))
     assert before == (kernels.stage2.launches, kernels.stage2_rot.launches,
-                      agc.envelope_scan.launches, tdemod.sam_pll.launches)
+                      agc.envelope_scan.launches, tdemod.sam_pll.launches,
+                      tnoise.lms_chain_block.launches)
 
 
 def test_kernel_library_path_is_keyed_and_ignored():
     path = _build.library_path()
     assert path.parent.name == _build.source_hash()
     assert path.is_relative_to(REPO / "build")          # .gitignore: build/
-    assert {p.name for p in _build._sources()} >= {"stage2.cu", "scans.cu"}
+    assert {p.name for p in _build._sources()} >= {"stage2.cu", "scans.cu",
+                                                    "lms.cu"}
