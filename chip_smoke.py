@@ -54,6 +54,29 @@ What it does, in order (any failed check raises; exit code != 0):
    nothing is non-finite; a block with the LMS chain on for every
    channel stays under the block period.
 
+5. The server: a ``KiwiServer`` on a ``StreamEngine`` at the same size
+   and the ``run_server`` scene, ``realtime=False``, 32 listeners over
+   in-process sockets, each driven by the command strings a KiwiSDR
+   client sends (``SET auth``, ``SET mod= low_cut= high_cut= freq=``,
+   ``SET compression=``, ``SET zoom= start=``, ``SET wf_speed=``): AM on
+   7100 kHz and USB on 14200 kHz (ADPCM and plain s16), one IQ-mode
+   listener, one SAM, one with ``SET nr algo=2`` + ``type=1 en=1`` +
+   ``type=0 en=1`` (kernel 5 through the protocol), one with spectral NR,
+   one S_meter extension client, four W/F sockets at z0/z7/z13/z14; a
+   listener that joins mid-run; where aiohttp is installed, one real
+   WebSocket client on an ephemeral port.  Checks: every SND header
+   parses, sequence numbers run without a gap, nothing was dropped; the
+   decoded audio of the AM lanes peaks at 1000 Hz, of the USB lanes at
+   1800 Hz; the S-meter field of the carrier lanes is within 1 dB of
+   ``run_block``'s; W/F rows arrive at every zoom with their strongest
+   bins on the scene's carriers; kernels 1, 3, 4 and 5 were launched
+   once a block; the late joiner hears audio within the pipeline's two
+   blocks (and the one that was running); the WebSocket client's first
+   SND packet is the one an in-process socket got.  Prints the wall time
+   a block (block start to block start), the realtime factor with the
+   server in the loop, the host time a block in the encode and the
+   fan-out, and what the event loop loses while the blocks are enqueued.
+
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no jax.
@@ -401,13 +424,11 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     # carries out.  Operations that the function needs, a stage that is on:
     # 5 a tap and sample (2 for the prediction, 3 for the update) and 4 a
     # sample for the norm, since successive windows differ by one sample
-    # (add the square that enters, take off the one that leaves).  The
-    # kernel itself sums all 64 squares a sample, 7 operations a tap, to
-    # keep the plain version's rounding; that is its choice, not the
-    # function's need.
+    # (add the square that enters, take off the one that leaves), which is
+    # also how the kernel takes its norms.
     # The row is the case with every stage on.  With mixed enables the
     # function needs half of that, but the kernel runs a stage for a whole
-    # warp (four channels) if one of them has it on, which with these
+    # warp (eight channels) if one of them has it on, which with these
     # enables is every warp: its time is the all-on time, and its bound is
     # printed beside the row, not as the row.
     carries = 2 * (pn.taps + pn.taps + pn.delay) * c_main * 4
@@ -946,6 +967,369 @@ def phase_serve(torch, device, timer, channels: int, block: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the server (KiwiSDR protocol over in-process sockets)
+# ---------------------------------------------------------------------------
+
+class Sock:
+    """An in-process socket: what a connection asks of one
+    (``send_bytes``, ``closed``, ``close``)."""
+
+    def __init__(self):
+        self.sent: list[bytes] = []
+        self.closed = False
+
+    async def send_bytes(self, data) -> None:
+        self.sent.append(bytes(data))
+
+    async def close(self) -> None:
+        self.closed = True
+
+    def of(self, tag: bytes) -> list[bytes]:
+        return [p for p in self.sent if p[:len(tag)] == tag]
+
+
+def parse_snd(pkt: bytes):
+    """(flags, seq, S-meter dBm, rest of the header, payload) of one SND
+    packet; raises on anything that is not one."""
+    import struct
+    from flydog_sdr_gps_tpu_torch.server import packets
+    check(pkt[:3] == b"SND" and len(pkt) >= 10, "not an SND packet")
+    flags = pkt[3]
+    seq, = struct.unpack("<I", pkt[4:8])
+    sm, = struct.unpack(">H", pkt[8:10])
+    n = 20 if flags & packets.SND_FLAG_MODE_IQ else 10
+    check(len(pkt) > n, "an SND packet without payload")
+    return flags, seq, sm / 10.0 - packets.SMETER_BIAS, pkt[10:n], pkt[n:]
+
+
+def snd_audio(sock: Sock) -> np.ndarray:
+    """The float audio of a socket's SND packets, ADPCM decoded from the
+    stream's start, s16 of either byte order."""
+    from flydog_sdr_gps_tpu_torch.ops import adpcm
+    from flydog_sdr_gps_tpu_torch.server import packets
+    st, out = adpcm.AdpcmState(), []
+    for pkt in sock.of(b"SND"):
+        flags, _seq, _sm, _hdr, payload = parse_snd(pkt)
+        if flags & packets.SND_FLAG_COMPRESSED:
+            out.append(adpcm.decode(np.frombuffer(payload, np.uint8), st))
+        else:
+            le = flags & packets.SND_FLAG_LITTLE_ENDIAN
+            out.append(np.frombuffer(payload, "<i2" if le else ">i2"))
+    return np.concatenate(out).astype(np.float64) / 32768.0
+
+
+def wf_rows(sock: Sock) -> list[tuple[int, int, np.ndarray]]:
+    """(zoom, seq, the 1024 dB bytes) of a socket's W/F packets."""
+    import struct
+    from flydog_sdr_gps_tpu_torch.ops import adpcm
+    from flydog_sdr_gps_tpu_torch.server import packets
+    out = []
+    for pkt in sock.of(b"W/F "):
+        _x_bin, fz, seq = struct.unpack("<III", pkt[4:16])
+        data = np.frombuffer(pkt[16:], np.uint8)
+        if fz & packets.WF_FLAGS_COMPRESSION:
+            data = adpcm.decode_u8(data, adpcm.AdpcmState())[
+                packets.ADPCM_PAD:]
+        check(len(data) == 1024, f"a W/F row of {len(data)} bins")
+        out.append((fz & 0xFFFF, seq, data))
+    return out
+
+
+SERVER_LISTENERS = 32
+
+
+def server_script(channels: int) -> list[tuple[str, list[str]]]:
+    """(what the lane is, the SET commands of its SND socket) for the 32
+    listeners, as a KiwiSDR client sends them."""
+    auth = "SET auth t=kiwi p="
+
+    def tune(mod, lo, hi, khz):
+        return f"SET mod={mod} low_cut={lo} high_cut={hi} freq={khz:.3f}"
+    am = tune("am", -4000, 4000, 7100.0)
+    usb = tune("usb", 300, 2700, 14200.0)
+    lanes = [
+        ("am adpcm", [auth, "SET ident_user=am", am, "SET compression=1"]),
+        ("am s16", [auth, am, "SET compression=0"]),
+        ("usb adpcm", [auth, usb, "SET compression=1"]),
+        ("usb s16", [auth, usb, "SET compression=0", "SET little-endian"]),
+        ("iq", [auth, tune("iq", -5000, 5000, 14200.0)]),
+        ("sam", [auth, tune("sam", -4000, 4000, 7100.0),
+                 "SET compression=0"]),
+        # the LMS chain (kernel 5) through the protocol
+        ("lms", [auth, usb, "SET compression=0", "SET nr algo=2",
+                 "SET nr type=1 en=1", "SET nr type=0 en=1"]),
+        # the 10 MHz carrier as a 1 kHz tone, spectral NR on
+        ("spectral_nr", [auth, tune("usb", 300, 2700, 9999.0),
+                         "SET compression=0", "SET nr algo=3",
+                         "SET nr type=0 en=1"]),
+        ("s_meter ext", [auth, am, "SET compression=1"]),
+    ]
+    for i in range(SERVER_LISTENERS - len(lanes)):
+        lanes.append((f"usb spread {i}", [
+            auth, tune("usb", 300, 2700, 1000.3 + 450.0 * i),
+            f"SET compression={i % 2}"]))
+    return lanes
+
+
+def phase_server(torch, device, channels: int, block: int,
+                 nblocks: int = 14) -> dict:
+    import asyncio
+    from flydog_sdr_gps_tpu_torch import run_server
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.numerology import (MAX_ZOOM, UI_SRATE_30M,
+                                                     WF_OUT_PX)
+    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels, noise
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    from flydog_sdr_gps_tpu_torch.server import KiwiServer, kiwi_server
+    from flydog_sdr_gps_tpu_torch.server import packets
+    counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
+                "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
+                "lms_chain": noise.lms_chain_block}
+    have_aiohttp = kiwi_server.web is not None
+
+    def engine():
+        params = rx.RxParams(num_channels=channels, audio_block=block)
+        src = DeviceSceneSource(tones=SCENE, noise_rms=3e-4,
+                                block=params.ddc.adc_block, device=device)
+        return StreamEngine(params, src, device=device)
+    # what run_block's S-meter reads on the two carrier lanes
+    twin = engine()
+    twin.set_channel(0, freq_hz=7.100e6, mode=demod.MODE_AM,
+                     passband=(-4000.0, 4000.0))
+    twin.set_channel(1, freq_hz=14.200e6, mode=demod.MODE_USB,
+                     passband=(300.0, 2700.0))
+    for _ in range(3):
+        want_sm = twin.run_block().smeter_dbm[:2].cpu().numpy()
+    del twin
+
+    eng = engine()
+    server = KiwiServer(eng, realtime=False, port=0)
+    block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
+    hz_per_start = UI_SRATE_30M / (WF_OUT_PX << MAX_ZOOM)
+
+    def centred(zoom, cf=10.0e6):
+        span = UI_SRATE_30M / (1 << zoom)
+        return round((cf - span / 2) / hz_per_start)
+    wf_zooms = {0: 0, 1: 7, 2: 13, 3: 14}       # listener -> zoom
+    script = server_script(channels)
+    snd: dict[int, Sock] = {}
+    wfs: dict[int, Sock] = {}
+    ext = Sock()
+    late = Sock()
+    info: dict = {}
+
+    async def drive():
+        loop = asyncio.get_running_loop()
+        # the listeners are there before the first block, so that every
+        # block of this run serves all of them
+        for i, (_what, cmds) in enumerate(script):
+            snd[i] = Sock()
+            conn = await server.open_stream(f"c{i}", "SND", snd[i],
+                                            "127.0.0.1")
+            check(conn is not None and conn.rx_chan == i, f"listener {i}")
+            for cmd in cmds:
+                await conn.handle_set(cmd, "SND")
+        for i, zoom in wf_zooms.items():
+            wfs[i] = Sock()
+            conn = await server.open_stream(f"c{i}", "W/F", wfs[i],
+                                            "127.0.0.1")
+            for cmd in ("SET auth t=kiwi p=",
+                        f"SET zoom={zoom} start="
+                        f"{0 if zoom == 0 else centred(zoom)}",
+                        "SET wf_speed=4"):
+                await conn.handle_set(cmd, "W/F")
+        conn = await server.open_stream("c8", "EXT", ext, "127.0.0.1")
+        await conn.handle_set("SET auth t=kiwi p=", "EXT")
+        await conn.handle_set("SET ext_switch_to_client=S_meter "
+                              "first_time=1", "EXT")
+        # the counts of the server's run start here: nothing has run yet
+        check(eng.seq == 0, "a block ran before the server was started")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        runner = None
+        if have_aiohttp:
+            runner = await server.start()       # an ephemeral port
+        else:
+            server.start_tasks()
+        # buckets up to 64 marked warm, as the entry point does at boot
+        await run_server.prewarm(server, eng, 64)
+        lags: list[float] = []
+
+        async def lag_probe():
+            while True:
+                t = loop.time()
+                await asyncio.sleep(0.005)
+                lags.append(loop.time() - t - 0.005)
+        probe = asyncio.create_task(lag_probe())
+
+        async def wait_for(cond, what, timeout=120.0):
+            t0 = time.monotonic()
+            while not cond():
+                await asyncio.sleep(0.002)
+                check(time.monotonic() - t0 < timeout, f"timed out: {what}")
+        await wait_for(lambda: min(len(s.of(b"SND")) for s in snd.values())
+                       >= nblocks // 2, "half of the blocks")
+        # a listener joins mid-run
+        info["join_seq"] = eng.seq
+        conn = await server.open_stream("late", "SND", late, "127.0.0.1")
+        for cmd in script[3][1]:
+            await conn.handle_set(cmd, "SND")
+        await wait_for(lambda: late.of(b"SND"), "the late joiner's audio")
+        info["late_blocks"] = eng.seq - info["join_seq"]
+        real = None
+        if have_aiohttp:
+            # one real WebSocket client camps on listener 3's channel
+            import aiohttp
+            async with aiohttp.ClientSession() as http:
+                ws = await http.ws_connect(
+                    f"http://127.0.0.1:{server.port}/real/MON")
+                for cmd in ("SET auth t=kiwi p=", "SET camp=3",
+                            "SET compression=0", "SET little-endian"):
+                    await ws.send_str(cmd)
+                real = []
+                while len(real) < 3:
+                    m = await asyncio.wait_for(ws.receive(), 60)
+                    check(m.type == aiohttp.WSMsgType.BINARY,
+                          f"the WebSocket client got {m.type}")
+                    if m.data[:3] == b"SND":
+                        real.append(bytes(m.data))
+                async with http.get(
+                        f"http://127.0.0.1:{server.port}/status") as r:
+                    info["status"] = await r.text()
+                await ws.close()
+        await wait_for(lambda: min(len(s.of(b"SND")) for s in snd.values())
+                       >= nblocks, "all of the blocks")
+        probe.cancel()
+        info["launches"] = {k: fn.launches for k, fn in counters.items()}
+        info["blocks"] = eng.seq
+        info["starts"] = list(server.block_started)
+        info["drops"] = sum(c.send_drops for c in server.conns.values())
+        info["lags"] = lags
+        info["real"] = real
+        await server.stop()
+        if runner is not None:
+            await runner.cleanup()
+        await asyncio.sleep(0.05)
+    asyncio.run(drive())
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches, blocks = info["launches"], info["blocks"]
+    log(f"  aiohttp present: {have_aiohttp}; {blocks} blocks run, launches "
+        f"{launches}")
+    for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain"):
+        check(launches[k] == blocks, f"kernel {k}: {launches[k]} launches in "
+              f"{blocks} blocks of the server, not one a block")
+    check(launches["stage2"] == 0, "the server's path is the fused one")
+    check(info["drops"] == 0, f"{info['drops']} packets were dropped")
+
+    # every header parses, no sequence gap
+    fs = eng.params.fs_out
+    for i, sock in snd.items():
+        pkts = [parse_snd(p) for p in sock.of(b"SND")]
+        check(len(pkts) >= nblocks, f"listener {i}: {len(pkts)} packets")
+        seqs = [p[1] for p in pkts]
+        check(seqs == list(range(len(seqs))), f"listener {i}: sequence "
+              f"numbers {seqs}")
+        want_flags = {"am adpcm": packets.SND_FLAG_COMPRESSED, "am s16": 0,
+                      "usb s16": packets.SND_FLAG_LITTLE_ENDIAN,
+                      "iq": packets.SND_FLAG_MODE_IQ}.get(script[i][0])
+        if want_flags is not None:
+            check(all(p[0] == want_flags for p in pkts),
+                  f"listener {i} ({script[i][0]}): flags {pkts[0][0]:#x}")
+    import struct
+    iq_secs = [struct.unpack("<BBII", parse_snd(p)[3])[2:]
+               for p in snd[4].of(b"SND")]
+    check(iq_secs == sorted(iq_secs) and iq_secs[-1] > iq_secs[0],
+          f"the IQ header's time does not advance: {iq_secs[:3]}")
+    heard = {}
+    for i in (0, 1, 2, 3, 5, 7):
+        a = snd_audio(snd[i])
+        check(len(a) >= nblocks * block and bool(np.isfinite(a).all()),
+              f"listener {i}: audio")
+        heard[i] = dominant_hz(a[len(a) // 4:], fs)
+    resolution = fs / (nblocks * block * 3 // 4)
+    log(f"  heard, Hz: AM adpcm {heard[0]:.1f}, AM s16 {heard[1]:.1f}, USB "
+        f"adpcm {heard[2]:.1f}, USB s16 {heard[3]:.1f}, SAM {heard[5]:.1f}, "
+        f"spectral-NR lane {heard[7]:.1f}")
+    for i, want in ((0, 1000.0), (1, 1000.0), (2, 1800.0), (3, 1800.0),
+                    (5, 1000.0), (7, 1000.0)):
+        check(abs(heard[i] - want) <= 2 * resolution + 5,
+              f"listener {i} ({script[i][0]}) hears {heard[i]} Hz")
+    lms_audio = snd_audio(snd[6])
+    check(bool(np.isfinite(lms_audio).all()), "the LMS lane's audio")
+    sm_am = parse_snd(snd[1].of(b"SND")[-1])[2]
+    sm_usb = parse_snd(snd[3].of(b"SND")[-1])[2]
+    log(f"  S-meter field dBm: AM {sm_am:.1f} (run_block {want_sm[0]:.2f}), "
+        f"USB {sm_usb:.1f} (run_block {want_sm[1]:.2f})")
+    check(abs(sm_am - want_sm[0]) <= 1.0 and abs(sm_usb - want_sm[1]) <= 1.0,
+          "the S-meter field is not within 1 dB of run_block's")
+    ext_msgs = ext.of(b"EXT smeter ")
+    check(ext.of(b"EXT ready") and len(ext_msgs) >= nblocks - 1,
+          f"the S-meter extension sent {len(ext_msgs)} readings")
+    ext_dbm, = struct.unpack("<f", ext_msgs[-1][11:15])
+    check(abs(ext_dbm - want_sm[0]) <= 1.0, f"extension reads {ext_dbm}")
+
+    # the waterfall at every zoom
+    z0_px = None
+    for i, zoom in wf_zooms.items():
+        rows = wf_rows(wfs[i])
+        check(len(rows) >= nblocks // 2, f"z{zoom}: {len(rows)} rows")
+        check(all(z == zoom for z, _s, _r in rows)
+              and [s for _z, s, _r in rows] == list(range(len(rows))),
+              f"z{zoom}: zoom or sequence numbers")
+        row = rows[-1][2].astype(np.float64)
+        if zoom == 0:
+            want_px = sorted(round(f / UI_SRATE_30M * WF_OUT_PX)
+                             for f in WF_CARRIERS_HZ)
+            z0_px = strongest_peaks(row, 3)
+            check(all(abs(g - w) <= 1 for g, w in zip(z0_px, want_px)),
+                  f"z0 peaks {z0_px} are not at the carriers {want_px}")
+        else:
+            px = int(np.argmax(row))
+            check(abs(px - WF_OUT_PX // 2) <= 1 and row[px] > np.median(row)
+                  + 30, f"z{zoom} peak at pixel {px}")
+    log(f"  W/F rows: {[len(wf_rows(wfs[i])) for i in wf_zooms]} at zooms "
+        f"{list(wf_zooms.values())}; z0 peaks at pixels {z0_px}")
+
+    # the late joiner and the real client
+    log(f"  the late joiner's first audio came {info['late_blocks']} blocks "
+        "after it joined")
+    check(info["late_blocks"] <= 3, "the late joiner waited more than the "
+          "pipeline's two blocks and the one that was running")
+    if info["real"] is not None:
+        own = {parse_snd(p)[4]: parse_snd(p)[2] for p in snd[3].of(b"SND")}
+        first = parse_snd(info["real"][0])
+        check(first[4] in own and own[first[4]] == first[2]
+              and first[0] == packets.SND_FLAG_LITTLE_ENDIAN,
+              "the WebSocket client's first SND packet is not the one an "
+              "in-process socket got on that channel")
+        check("users=34" in info["status"] and "sdr_hw=NVIDIA" in
+              info["status"], f"/status: {info['status']!r}")
+        log("  a real WebSocket client on an ephemeral port got the same "
+            "first SND packet as the in-process socket on its channel; "
+            "/status answered")
+
+    starts = np.diff(np.asarray(info["starts"])) * 1e3
+    steady = starts[2:]                         # past the first blocks
+    lags = np.asarray(info["lags"]) * 1e3
+    return dict(
+        launches=launches, blocks=blocks, aiohttp=have_aiohttp,
+        ms_blocks=[float(v) for v in starts],
+        ms_median=float(np.median(steady)), ms_min=float(steady.min()),
+        ms_max=float(steady.max()),
+        realtime_factor=float(len(steady) * block_ms / steady.sum()),
+        block_period_ms=block_ms, peak_mem_gb=peak_gb,
+        encode_ms_per_block=server.encode_s / server.blocks_fanned * 1e3,
+        fanout_ms_per_block=server.fanout_s / server.blocks_fanned * 1e3,
+        loop_lag_ms=dict(mean=float(lags.mean()), p99=float(
+            np.percentile(lags, 99)), max=float(lags.max()), n=len(lags)),
+        late_blocks=info["late_blocks"], heard_hz=heard,
+        smeter_field_dbm=[sm_am, sm_usb],
+        smeter_run_block_dbm=[float(v) for v in want_sm])
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
@@ -1042,7 +1426,24 @@ def main(argv: list[str]) -> int:
         f"  [{card}]")
     if sv["profile"]:
         log(sv["profile"])
+    log("phase 5: the server, C=4096, audio_block=2048, 32 listeners and "
+        "four waterfall sockets over the KiwiSDR protocol")
+    sr = phase_server(torch, device, channels=4096, block=2048)
+    log(f"  served by the server: per block median {sr['ms_median']} ms, min "
+        f"{sr['ms_min']}, max {sr['ms_max']} (block start to block start, "
+        f"after 2 blocks); realtime factor {sr['realtime_factor']} with the "
+        f"server in the loop; peak memory {sr['peak_mem_gb']} GB  [{card}]")
+    log(f"  per-block ms: {[round(v, 2) for v in sr['ms_blocks']]}")
+    log(f"  host ms a block: encode {sr['encode_ms_per_block']:.3f}, fan-out "
+        f"(framing, queues, extension, waterfall rows) "
+        f"{sr['fanout_ms_per_block']:.3f}; what the event loop loses: a "
+        f"5 ms sleep came back late by mean {sr['loop_lag_ms']['mean']:.3f} "
+        f"ms, p99 {sr['loop_lag_ms']['p99']:.3f}, max "
+        f"{sr['loop_lag_ms']['max']:.3f} ({sr['loop_lag_ms']['n']} sleeps); "
+        f"aiohttp present: {sr['aiohttp']}  [{card}]")
+    check(sr["realtime_factor"] >= 1.0, "the server does not hold real time")
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
+                   server=sr,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -1054,9 +1455,11 @@ def main(argv: list[str]) -> int:
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}/{src}",
              replaces=replaces,
-             launches=sl["launches"].get(name, 0) + sv["launches"][name],
+             launches=sl["launches"].get(name, 0) + sv["launches"][name]
+             + sr["launches"][name],
              launches_slice=sl["launches"].get(name, 0),
              launches_serve=sv["launches"][name],
+             launches_server=sr["launches"][name],
              launches_per_block=sl["launches_per_block"].get(
                  name, sv["launches"][name] / sv["blocks"]),
              launches_per_block_unfused=sl[

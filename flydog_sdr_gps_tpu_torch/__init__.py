@@ -12,14 +12,25 @@ the reference's layout and module names:
 - ``runtime``  — sample sources and the streaming engine (block loop,
                  the serving path's packed gather and fetch,
                  checkpointing).
-- ``server``   — the shared waterfall subsystem (``wf_service``).
+- ``server``   — the KiwiSDR-protocol server (``kiwi_server``: SND and
+                 W/F WebSocket streams, the REST endpoints, the admin
+                 socket, the embedded web UI), its packet framing,
+                 background services and the shared waterfall
+                 subsystem (``wf_service``).
+- ``extensions`` — the extension base, the registry and the two
+                 host-only extensions (S-meter, IQ display).
+- ``utils``    — config, log ring, event trace, password hashing, the
+                 DX label database and the EiBi schedule.
+- ``run_server`` — ``python -m flydog_sdr_gps_tpu_torch.run_server``.
 - ``convert``  — JAX reference state/tuning (as numpy) -> port tensors.
 - ``csrc``     — hand-written CUDA kernels, built at first use by
                  ``_build`` (plain ``nvcc``, loaded with ``ctypes``).
 
 The package imports ``torch`` and never ``jax``, and nothing of the
-reference package: ``numerology``, ``ops.filters`` and ``ops.windows`` are
-its own copies of the reference's host-only modules of those names.
+reference package: ``numerology``, ``ops.filters``, ``ops.windows``,
+``ops.adpcm``, ``runtime.native``, ``utils``, ``extensions`` and the
+host-only modules of ``server`` are its own copies of the reference's
+modules of those names.
 
 Conventions kept from the reference at every public function: signals
 are time-major ``(N, C)``; 48-bit NCO phases are exact.  What changes:

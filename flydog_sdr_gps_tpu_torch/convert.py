@@ -14,6 +14,13 @@ The waterfall's ``WfState`` and its stage-A tuning (``tune``'s
 ``(bank_r, bank_i, dphi_limbs)``) convert the same way
 (:func:`wf_state_from_ref`, :func:`wf_tune_from_ref`).
 
+The server's host state converts too: the control mirrors
+(``ChannelCtl``) as the reference server's SET handlers leave them
+(:func:`ctl_from_ref`, :func:`load_ctl`) and the per-channel ADPCM
+encoder state (:func:`chan_codec_from_ref`), so that a test can put a
+server of each package into the same state before the block it
+compares.
+
 This module imports no jax: the caller converts the reference's arrays
 to numpy first.
 
@@ -36,6 +43,7 @@ from .ops import channelizer as chz
 from .ops import demod as demod_ops
 from .ops import noise as noise_ops
 from .ops.nco import words_from_limbs
+from .runtime.stream import ChannelCtl, StreamEngine
 
 
 def _get(obj, name: str):
@@ -139,3 +147,41 @@ def wf_tune_from_ref(bank_r, bank_i, dphi_limbs, device: torch.device | str
     """The reference's ``waterfall.tune`` result -> the port's (bank
     (taps,) complex64, dphi () int64)."""
     return _complex((bank_r, bank_i), device), _words(dphi_limbs, device)
+
+
+def ctl_from_ref(src_ctl) -> list[ChannelCtl]:
+    """The reference engine's control mirrors (its ``ChannelCtl``
+    objects, or dicts of their fields) -> the port's."""
+    out = []
+    for c in src_ctl:
+        kw = {}
+        for f in dataclasses.fields(ChannelCtl):
+            v = _get(c, f.name)
+            if f.name == "passband" and v is not None:
+                v = (float(v[0]), float(v[1]))
+            kw[f.name] = v
+        out.append(ChannelCtl(**kw))
+    return out
+
+
+def load_ctl(engine: StreamEngine, src_ctl) -> None:
+    """Give ``engine`` the reference engine's control mirrors and the
+    tuning that the same ``set_channel`` calls would have left."""
+    ctl = ctl_from_ref(src_ctl)
+    if len(ctl) != engine.params.num_channels:
+        raise ValueError(f"{len(ctl)} control mirrors for "
+                         f"{engine.params.num_channels} channels")
+    engine.ctl = ctl
+    engine.tuning = engine._tuning_from_ctl()
+
+
+def chan_codec_from_ref(src_codec) -> dict[int, np.ndarray]:
+    """The reference server's ``_chan_codec`` ({channel: [predictor,
+    step index]}) -> a fresh dict of int32 pairs for the port's."""
+    out = {}
+    for ch, st in src_codec.items():
+        st = np.array(st, np.int32)
+        if st.shape != (2,):
+            raise ValueError(f"channel {ch}: codec state is {st.shape}")
+        out[int(ch)] = st
+    return out

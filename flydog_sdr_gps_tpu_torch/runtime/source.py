@@ -108,8 +108,9 @@ class FileSource(SampleSource):
 class Int24FileSource(SampleSource):
     """Replay a packed signed-24-bit little-endian capture, the FPGA's
     native RXO wire format (`RXO_BITS=24`, converted s24->float in
-    `rx/data_pump.cpp:145-208`).  The conversion is numpy (the
-    reference package's native C converter is not ported)."""
+    `rx/data_pump.cpp:145-208`).  Uses the native converter
+    (`runtime/native/datapump.c`) when a C compiler built it, numpy
+    otherwise."""
 
     def __init__(self, path: str, scale: float = 2.0 ** -23,
                  iq_swap: bool = False,
@@ -119,13 +120,17 @@ class Int24FileSource(SampleSource):
         n = (len(raw) // 3) * 3
         if n == 0:
             raise ValueError(f"empty capture {path}")
-        b = raw[:n].reshape(-1, 3).astype(np.int32)
-        v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
-        v = (v << 8) >> 8
-        self._data = (v * scale).astype(np.float32)
-        if iq_swap:
-            d = self._data[:len(self._data) // 2 * 2].reshape(-1, 2)
-            self._data = d[:, ::-1].reshape(-1)
+        from . import native
+        if native.s24_to_f32 is not None:
+            self._data = native.s24_to_f32(raw[:n], scale, iq_swap)
+        else:  # pragma: no cover - no compiler available
+            b = raw[:n].reshape(-1, 3).astype(np.int32)
+            v = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16)
+            v = (v << 8) >> 8
+            self._data = (v * scale).astype(np.float32)
+            if iq_swap:
+                d = self._data[:len(self._data) // 2 * 2].reshape(-1, 2)
+                self._data = d[:, ::-1].reshape(-1)
         self._pos = 0
         self.loop = loop
 
@@ -136,9 +141,9 @@ class BlockRing:
     """Single-producer single-consumer ring of float32 blocks (the
     reference's `rx_dpump_t` N_DPBUF ring, `rx/data_pump.h:36-57`): the
     ingest thread pushes, the dispatch loop pops.  A push into a full
-    ring drops the NEW block and counts it, as the reference package's
-    native C ring does (which is not ported: this one is a deque under a
-    lock)."""
+    ring drops the NEW block and counts it.  The numpy stand-in (a
+    deque under a lock) for `runtime/native`'s C ring, which
+    :class:`ThreadedSource` takes whenever a C compiler built it."""
 
     def __init__(self, block: int, nblocks: int = 32):
         self.block = int(block)
@@ -174,7 +179,8 @@ class BlockRing:
 
 class ThreadedSource(SampleSource):
     """Decouple ingest from dispatch: a producer thread pulls blocks
-    from ``inner`` into a :class:`BlockRing`; ``next_block`` pops.
+    from ``inner`` into the native SPSC ring (:class:`BlockRing` where no
+    C compiler is found); ``next_block`` pops.
 
     This is the data-pump split of the reference (SPI helper process +
     `data_pump` task, `platform/common/spi_dev.cpp:168`,
@@ -187,7 +193,8 @@ class ThreadedSource(SampleSource):
         super().__init__(inner.adc_clock)
         self.inner = inner
         self.block = block
-        self.ring = BlockRing(block, nblocks)
+        from . import native
+        self.ring = (native.NativeRing or BlockRing)(block, nblocks)
         self._target_fill = max(nblocks * 3 // 4, 1)
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)

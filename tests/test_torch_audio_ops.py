@@ -430,3 +430,36 @@ def test_lms_plain_version_matches_reference_scan(on_notch, on_den):
                                             tc(en_n), tc(en_d))
     assert torch.equal(y2, y3)
     assert tnoise.lms_chain_block.launches == before
+
+
+def test_lms_plain_three_blocks_random_enables():
+    """Eight channels with seeded random enables a stage, three blocks of
+    a length that is no multiple of the kernel's run (16), state carried:
+    the plain version against the JAX scan."""
+    tn, td = tnoise.LmsParams(notch=True), tnoise.LmsParams(notch=False)
+    jn, jd = jnoise.LmsParams(notch=True), jnoise.LmsParams(notch=False)
+    rng = np.random.default_rng(5)
+    c, n = 8, 100
+    en_n, en_d = rng.random(c) < 0.5, rng.random(c) < 0.5
+    assert en_n.any() and en_d.any() and not (en_n & en_d).all()
+    tsn, tsd = tnoise.init_lms(tn, c, "cpu"), tnoise.init_lms(td, c, "cpu")
+    jsn, jsd = jnoise.init_lms(jn, c), jnoise.init_lms(jd, c)
+    f = rng.uniform(200.0, 3000.0, c)
+    for blk in range(3):
+        t = (np.arange(n)[:, None] + n * blk) / FS
+        x = (0.5 * np.sin(2 * np.pi * f * t)
+             + 0.2 * rng.standard_normal((n, c))).astype(np.float32)
+        y, tsn, tsd = tnoise.lms_chain_block_plain(
+            tn, td, tc(x), tsn, tsd, tc(en_n), tc(en_d))
+        yr, jsn, jsd = jnoise.lms_chain_block(
+            jn, jd, jnp.asarray(x), jsn, jsd, jnp.asarray(en_n),
+            jnp.asarray(en_d))
+        close(y, yr, LOOP, f"block {blk}")
+        for got, ref in ((tsn, jsn), (tsd, jsd)):
+            close(got.weights, ref.weights, LOOP, scale=1.0)
+            close(got.line, ref.line, LOOP)
+    both_off = ~(en_n | en_d)
+    if both_off.any():
+        np.testing.assert_array_equal(y.numpy()[:, both_off], x[:, both_off])
+    assert not tsn.weights[:, tc(~en_n)].any()
+    assert bool(tsn.weights[:, tc(en_n)].any())

@@ -250,12 +250,13 @@ def test_agc_envelope_tiles_and_hang_match_plain(card, c, n):
                                                                 hang_r)
 
 
-@pytest.mark.parametrize("c, n", [(13, 75), (13, 200), (4096, 75),
-                                  (4096, 200)])
+@pytest.mark.parametrize("c, n", [(13, 5), (13, 75), (13, 200), (100, 75),
+                                  (100, 1000), (4096, 75), (4096, 200)])
 def test_lms_chain_matches_plain(card, c, n):
     """Kernel 5 with every combination of enables side by side, at row
-    counts that are no multiple of its tile (64) or of its sync interval
-    (16), two blocks with the state carried."""
+    counts that are no multiple of its run (16 samples, after which the
+    two stages' warps meet) or of 64, and at one shorter than a run; two
+    blocks with the state carried."""
     g = _gen(card, 77 * c + n)
     pn, pd = noise.LmsParams(notch=True), noise.LmsParams(notch=False)
     k = torch.arange(c, device=card)
@@ -285,6 +286,38 @@ def test_lms_chain_matches_plain(card, c, n):
     with pytest.raises(ValueError, match="taps"):
         noise.lms_chain_block(noise.LmsParams(taps=32), pd, x, sn, sd, en_n,
                               en_d)
+
+
+@pytest.mark.parametrize("which", ["one_lane", "all_on", "notch_only",
+                                   "denoiser_only"])
+def test_lms_chain_enable_patterns_at_full_width(card, which):
+    """Kernel 5 at the main path's shape, (2048, 4096): one lane on (what
+    one listener's SET nr gives), every stage on, and one stage alone
+    (the other stage's warps only copy)."""
+    c, n = 4096, 2048
+    g = _gen(card, len(which))
+    pn, pd = noise.LmsParams(notch=True), noise.LmsParams(notch=False)
+    one = torch.zeros(c, dtype=torch.bool, device=card)
+    one[c // 2 + 1] = True
+    every = torch.ones(c, dtype=torch.bool, device=card)
+    en_n, en_d = {"one_lane": (one, one), "all_on": (every, every),
+                  "notch_only": (every, ~every),
+                  "denoiser_only": (~every, every)}[which]
+    sn, sd = noise.init_lms(pn, c, card), noise.init_lms(pd, c, card)
+    t = torch.arange(n, device=card, dtype=torch.float32)[:, None]
+    f = torch.empty((1, c), device=card).uniform_(0.05, 1.0, generator=g)
+    x = 0.3 * torch.sin(f * t) + 0.1 * torch.randn((n, c), generator=g,
+                                                   device=card)
+    y, gn, gd = noise.lms_chain_block(pn, pd, x, sn, sd, en_n, en_d)
+    yr, rn, rd = noise.lms_chain_block_plain(pn, pd, x, sn, sd, en_n, en_d)
+    scale = float(yr.abs().max())
+    assert float((y - yr).abs().max()) <= 1e-4 * scale
+    for got, ref in ((gn, rn), (gd, rd)):
+        assert float((got.weights - ref.weights).abs().max()) <= 1e-4
+        assert float((got.line - ref.line).abs().max()) <= 1e-4 * scale
+    off = ~(en_n | en_d)
+    assert torch.equal(y[:, off], x[:, off])
+    assert bool(torch.isfinite(y).all())
 
 
 def test_served_block_equals_run_block_on_card(card):

@@ -4,9 +4,11 @@ reference package, and its copies of the reference's host-only modules
 originals.
 
 - a subprocess whose import system refuses ``jax``, ``jaxlib`` and
-  ``flydog_sdr_gps_tpu`` imports every module of the port and runs two
+  ``flydog_sdr_gps_tpu`` imports every module of the port (the server,
+  its services, the web UI and the entry point among them) and runs two
   ``StreamEngine`` blocks on the CPU (C=8, audio_block=256), then one
-  ``run_block_gather`` and one waterfall row from that block;
+  ``run_block_gather`` and one waterfall row from that block, then a
+  ``KiwiServer`` that serves a listener two blocks;
 - a source scan finds no ``import``/``from`` of either in the port's
   package or ``chip_smoke.py``;
 - every public constant of ``numerology`` is equal, and the filter
@@ -61,9 +63,12 @@ def test_port_runs_without_jax_and_reference_package():
             port.__path__, port.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 20, names
+        assert len(names) >= 38, names
         for wanted in ("models.waterfall", "server.wf_service",
-                       "ops.windows"):
+                       "ops.windows", "server.kiwi_server", "server.webui",
+                       "server.services", "server.netproto", "run_server",
+                       "utils.dx", "utils.eibi", "utils.security",
+                       "extensions.s_meter", "runtime.native", "ops.adpcm"):
             assert f"{port.__name__}.{wanted}" in names, wanted
 
         from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -95,6 +100,39 @@ def test_port_runs_without_jax_and_reference_package():
         assert row.shape == (1024,) and np.isfinite(row).all()
         want_px = round(7.1e6 / 30.0e6 * 1024)
         assert abs(int(np.argmax(row)) - want_px) <= 1, int(np.argmax(row))
+
+        # the server on that engine: one listener over an in-process
+        # socket, two served blocks, the SNR service's measurement
+        import asyncio
+        from flydog_sdr_gps_tpu_torch.server import KiwiServer
+        from flydog_sdr_gps_tpu_torch.server.services import (
+            default_services)
+
+        class Sock:
+            closed = False
+            def __init__(self):
+                self.sent = []
+            async def send_bytes(self, data):
+                self.sent.append(bytes(data))
+            async def close(self):
+                self.closed = True
+
+        async def serve():
+            server = KiwiServer(eng, realtime=False, port=0)
+            sock = Sock()
+            conn = await server.open_stream("1", "SND", sock, "127.0.0.1")
+            await conn.handle_set("SET auth t=kiwi p=", "SND")
+            await conn.handle_set(
+                "SET mod=usb low_cut=300 high_cut=2700 freq=7099.500", "SND")
+            server.start_tasks()
+            while sum(p[:3] == b"SND" for p in sock.sent) < 2:
+                await asyncio.sleep(0.01)
+            default_services(server).services["snr_measure"].fn()
+            await server.stop()
+            return server, sock
+        server, sock = asyncio.run(serve())
+        assert sock.sent[0] == b"MSG badp=0"
+        assert server.snr_history and server.snr_history[-1]["snr"] >= 0
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("STANDALONE-OK")
     """)
