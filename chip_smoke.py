@@ -18,13 +18,17 @@ What it does, in order (any failed check raises; exit code != 0):
    infinity, or sit at the +-fmax clamp; the LMS chain (kernel 5) at
    (2048, 4096) with every combination of enables side by side, timed
    with every stage on (its row), with those mixed enables, every stage
-   off and one lane on.  Times each kernel twice (with the card kept
-   busy before the timed calls, ``ms``, and without, ``ms_host_paced``)
-   and its plain version, and for kernel 2 one library call
-   (``conv1d``) that computes the same function.  Each kernel's time is
-   held against its bound: the larger of its bytes (every input and
-   output once) over 3.35 TB/s and the operations the function needs
-   over 67 TFLOP/s (the H100 SXM's published float32 peak).
+   off and one lane on; the GPS tracking bank (kernel 6) on the 12 rows
+   a cold search of the ``run_server --gps`` sky leaves (C/A and E1B rows,
+   one C/A row dropped to make an inactive row), 40 epochs compared with
+   its plain version, 400 (one 0.4 s chunk) timed.  Times each kernel
+   twice (with the card kept busy before the timed calls, ``ms``, and
+   without, ``ms_host_paced``) and its plain version, and for kernel 2
+   one library call (``conv1d``) that computes the same function.  Each
+   kernel's time is held against its bound: the larger of its bytes
+   (every input and output once) over 3.35 TB/s and the operations the
+   function needs over 67 TFLOP/s (the H100 SXM's published float32
+   peak).
 2. DDC fidelity: a noise-free full-scale tone through ``ddc_block`` —
    right frequency, amplitude ~1.0, SINAD >= 80 dB (a stage-1 matmul
    that quietly ran in TF32 would fail this).
@@ -77,6 +81,24 @@ What it does, in order (any failed check raises; exit code != 0):
    server in the loop, the host time a block in the encode and the
    fan-out, and what the event loop loses while the blocks are enqueued.
 
+6a. GPS alone at full width: the ``run_server --gps`` sky (the GPS
+   satellites above 15 degrees of 8 asked for, the decoy PRNs 3, 7 and
+   30, 4 Galileo E1B satellites, +0.4 ppm, noise 0.9) synthesized on the
+   card, a 12-row ``GpsManager`` from a cold start, driven by
+   ``GpsReceiver.run`` in 0.4 s chunks until a fix and a locked clock (at
+   most 40 s of IF).  Checks: every satellite of the sky tracked, no
+   decoy, a fix within 60 m (the manager's single-point solution from
+   every satellite with an ephemeris; the EKF's error is printed beside
+   it), the clock within 0.15 ppm of +0.4, kernel 6 launched, no service
+   error.  Prints ms a chunk of the scene, of a
+   chunk with and without a search, of a solve, and IF time over wall
+   time.
+6b. Phase 5's server and traffic again, 24 blocks, with that receiver
+   (a new, cold one, paced at real time) beside it: the realtime factor
+   beside phase 5's, GPS chunks processed, rows tracking, the ADMIN
+   socket's ``gps`` reply.  Fails under a factor of 1.0 or with no
+   satellite tracked.
+
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no jax.
@@ -91,6 +113,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -117,6 +140,8 @@ KERNEL_SOURCES = {
     "agc_envelope": ("csrc/scans.cu", "flydog_sdr_gps_tpu/ops/agc.py:90"),
     "sam_pll": ("csrc/scans.cu", "flydog_sdr_gps_tpu/ops/demod.py:195"),
     "lms_chain": ("csrc/lms.cu", "flydog_sdr_gps_tpu/ops/noise.py:296"),
+    "gps_track": ("csrc/gps_track.cu",
+                  "flydog_sdr_gps_tpu/models/gps/tracking.py:330"),
 }
 # the serving scene adds one WSPR-like 4-FSK emitter (8192 audio samples a
 # symbol = 4 blocks, 162 symbols, then idle to 200)
@@ -988,6 +1013,26 @@ class Sock:
         return [p for p in self.sent if p[:len(tag)] == tag]
 
 
+class AdminSock(Sock):
+    """An in-process ADMIN socket: yields the given commands as the text
+    messages the server's ADMIN loop reads (its types come from aiohttp),
+    and records the replies."""
+
+    def __init__(self, cmds):
+        super().__init__()
+        self.cmds = list(cmds)
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        from flydog_sdr_gps_tpu_torch.server import kiwi_server
+        if not self.cmds:
+            raise StopAsyncIteration
+        return types.SimpleNamespace(type=kiwi_server.WSMsgType.TEXT,
+                                     data=self.cmds.pop(0))
+
+
 def parse_snd(pkt: bytes):
     """(flags, seq, S-meter dBm, rest of the header, payload) of one SND
     packet; raises on anything that is not one."""
@@ -1072,7 +1117,7 @@ def server_script(channels: int) -> list[tuple[str, list[str]]]:
 
 
 def phase_server(torch, device, channels: int, block: int,
-                 nblocks: int = 14) -> dict:
+                 nblocks: int = 14, gps=None) -> dict:
     import asyncio
     from flydog_sdr_gps_tpu_torch import run_server
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -1086,6 +1131,9 @@ def phase_server(torch, device, channels: int, block: int,
     counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
                 "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
                 "lms_chain": noise.lms_chain_block}
+    if gps is not None:
+        from flydog_sdr_gps_tpu_torch.models.gps import tracking
+        counters["gps_track"] = tracking.track_epochs
     have_aiohttp = kiwi_server.web is not None
 
     def engine():
@@ -1104,7 +1152,7 @@ def phase_server(torch, device, channels: int, block: int,
     del twin
 
     eng = engine()
-    server = KiwiServer(eng, realtime=False, port=0)
+    server = KiwiServer(eng, realtime=False, port=0, gps=gps)
     block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
     hz_per_start = UI_SRATE_30M / (WF_OUT_PX << MAX_ZOOM)
 
@@ -1203,6 +1251,9 @@ def phase_server(torch, device, channels: int, block: int,
                        >= nblocks, "all of the blocks")
         probe.cancel()
         info["launches"] = {k: fn.launches for k, fn in counters.items()}
+        if gps is not None:
+            info["admin_gps"] = await admin_gps_reply(server)
+            info["gps_status"] = gps.status()
         info["blocks"] = eng.seq
         info["starts"] = list(server.block_started)
         info["drops"] = sum(c.send_drops for c in server.conns.values())
@@ -1306,6 +1357,8 @@ def phase_server(torch, device, channels: int, block: int,
               "in-process socket got on that channel")
         check("users=34" in info["status"] and "sdr_hw=NVIDIA" in
               info["status"], f"/status: {info['status']!r}")
+        if gps is not None:
+            check("gps_good=" in info["status"], "/status without GPS")
         log("  a real WebSocket client on an ephemeral port got the same "
             "first SND packet as the in-process socket on its channel; "
             "/status answered")
@@ -1313,7 +1366,24 @@ def phase_server(torch, device, channels: int, block: int,
     starts = np.diff(np.asarray(info["starts"])) * 1e3
     steady = starts[2:]                         # past the first blocks
     lags = np.asarray(info["lags"]) * 1e3
-    return dict(
+    gps_out = {}
+    if gps is not None:
+        st = info["gps_status"]
+        chunks = gps.mgr.ticks // gps.chunk
+        log(f"  GPS beside the server: {chunks} chunks of 0.4 s processed, "
+            f"kernel 6 launched {launches['gps_track']} times, "
+            f"{st['tracking']} rows tracking {st['prns']}, service errors "
+            f"{gps.errors}; ADMIN gps: " + json.dumps(
+                info["admin_gps"] and {k: info["admin_gps"][k] for k in (
+                    "enabled", "tracking", "prns", "fixes", "clock_ppm")}))
+        check(gps.errors == 0, f"the GPS service logged {gps.errors} errors")
+        check(st["tracking"] > 0, "no satellite is tracked beside the server")
+        check(launches["gps_track"] > 0, "kernel 6 was not launched")
+        check(info["admin_gps"] is None or
+              info["admin_gps"]["enabled"] is True, "ADMIN gps")
+        gps_out = dict(gps_chunks=int(chunks), gps_tracking=st["tracking"],
+                       gps_prns=st["prns"], admin_gps=info["admin_gps"])
+    return dict(**gps_out,
         launches=launches, blocks=blocks, aiohttp=have_aiohttp,
         ms_blocks=[float(v) for v in starts],
         ms_median=float(np.median(steady)), ms_min=float(steady.min()),
@@ -1327,6 +1397,210 @@ def phase_server(torch, device, channels: int, block: int,
         late_blocks=info["late_blocks"], heard_hz=heard,
         smeter_field_dbm=[sm_am, sm_usb],
         smeter_run_block_dbm=[float(v) for v in want_sm])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the GPS/Galileo receiver (kernel 6), alone and beside the server
+# ---------------------------------------------------------------------------
+
+GPS_LLA = (47.37, 8.54, 450.0)
+# t0 picked as tests/test_gps_e2e.py picks it: the first three full
+# subframes are ids 1, 2, 3, so the ephemerides complete ~19.3 s in
+GPS_T0 = 345628.7
+GPS_PPM = 0.4
+GPS_DECOYS = (3, 7, 30)
+
+
+def make_gps(device, realtime: bool = False):
+    """The ``run_server --gps`` sky and receiver, cold: 8 GPS satellites,
+    the decoy PRNs 3, 7 and 30, 4 Galileo E1B satellites, the oscillator
+    at +0.4 ppm, noise 0.9, amplitude 0.5, synthesized on the card in
+    0.4 s chunks, a 12-row manager on the card.  Returns (receiver,
+    receiver position, the PRNs the sky has, the decoys it has not)."""
+    from flydog_sdr_gps_tpu_torch.models.gps import manager, scene
+    from flydog_sdr_gps_tpu_torch.numerology import GALILEO_PRN_BASE
+    from flydog_sdr_gps_tpu_torch.runtime import GpsReceiver
+    rx = scene.ecef_from_lla(*GPS_LLA)
+    ephs = scene.visible_constellation(rx, GPS_T0, n_sats=8)
+    gal = scene.visible_galileo(rx, GPS_T0, n_sats=4)
+    sky = scene.GpsScene(rx, ephs, GPS_T0, duration=60.0,
+                         clock_ppm=GPS_PPM, noise=0.9, amplitude=0.5,
+                         galileo_ephemerides=gal, device=device)
+    mgr = manager.GpsManager(prns=tuple(ephs) + GPS_DECOYS,
+                             galileo_prns=tuple(gal), device=device)
+    rec = GpsReceiver(sky, mgr, chunk_seconds=0.4, realtime=realtime)
+    want = set(ephs) | {GALILEO_PRN_BASE + g for g in gal}
+    return rec, rx, want, set(GPS_DECOYS) - set(ephs)
+
+
+def gps_kernel_case(torch, timer, device) -> dict:
+    """Kernel 6 against its plain version at the main path's shape: the
+    12 rows a cold search of the sky leaves (C/A and E1B), one C/A row
+    dropped to make an inactive row, 40 epochs compared, 400 timed."""
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
+    rec, _rx, _want, _decoys = make_gps(device)
+    mgr, sky, tp = rec.mgr, rec.source, rec.mgr.tp
+    mgr.process(sky.next_block(rec.chunk), search=True)
+    st, tab = mgr._track_state, mgr._code_table
+    is_boc = st.boc > 0
+    ca = torch.nonzero(st.active & ~is_boc).flatten().tolist()
+    check(int((st.active & is_boc).sum()) >= 1 and len(ca) >= 2,
+          f"rows after the cold search: {sorted(mgr.channels)}")
+    base = st.clone()
+    tracking.deactivate_channel(base, ca[0])
+    raw = sky.next_block(rec.chunk).reshape(-1, tp.epoch)     # (400, 16368)
+    n_cmp = 40
+    s_k, s_p = base.clone(), base.clone()
+    _, o_k = tracking.track_epochs(tp, s_k, tab, raw[:n_cmp])
+    _, o_p = tracking.track_epochs_plain(tp, s_p, tab, raw[:n_cmp])
+    scale = float(o_p["ip"].abs().max())
+    err = max(max_err(o_k[k], o_p[k])[0]
+              for k in ("ip", "qp", "ip_pre", "qp_pre"))
+    cp_err = max(max_err(o_k["code_phase"], o_p["code_phase"])[0],
+                 max_err(s_k.code_phase, s_p.code_phase)[0])
+    cf_rel = max(float(((o_k["carr_freq"] - o_p["carr_freq"]).abs()
+                        / o_p["carr_freq"].abs()).max()),
+                 float(((s_k.carr_freq - s_p.carr_freq).abs()
+                        / s_p.carr_freq.abs()).max()))
+    log(f"  gps_track (12 rows: {int(base.active.sum())} active, "
+        f"{int((base.active & is_boc).sum())} E1B; {n_cmp} epochs) "
+        f"max|err| of ip/qp/ip_pre/qp_pre {err:.3e} (bound "
+        f"{1e-3 * scale:.3e}); code phase {cp_err:.3e} chip (bound 1e-3); "
+        f"carr_freq {cf_rel:.3e} relative (bound 1e-6)")
+    check(err <= 1e-3 * scale, f"gps_track sums: {err}")
+    check(cp_err <= 1e-3 and cf_rel <= 1e-6, "gps_track loops")
+    s_t, s_pl = base.clone(), base.clone()
+    fn = lambda: tracking.track_epochs(tp, s_t, tab, raw)
+    plain = lambda: tracking.track_epochs_plain(tp, s_pl, tab, raw)
+    t0 = time.perf_counter()
+    _, o_full = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # operations as the kernel is written, a sample and row: the phase
+    # (fma, 2), sin and cos (1 each), the wipe-off (2), six accumulates
+    # of E, P, L (2 each), the split's compare (1); the split sums (4)
+    # for the samples before each epoch's code-period boundary, counted
+    # from this run's code phases; ~40 a row and epoch for the loops
+    n_ep, nch, n = raw.shape[0], base.code_phase.shape[0], tp.epoch
+    cl = base.code_len[None, :]
+    t_b = (cl - torch.remainder(o_full["code_phase"], cl)) \
+        / base.code_rate[None, :]
+    n_pre = float(torch.clamp(torch.ceil(t_b), 0, n).sum())
+    flops = 19.0 * n * n_ep * nch + 4.0 * n_pre + 40.0 * n_ep * nch
+    # the chunk and the code table in; the state in and out; the outputs
+    nbytes = (raw.numel() * 4 + tab.numel() * 4 + nch * (9 * 4 + 1)
+              + nch * 6 * 4 + 9 * n_ep * nch * 4)
+    out = dict(max_abs_err=err, err_bound=1e-3 * scale, code_phase_err=cp_err,
+               carr_freq_rel_err=cf_rel, **timer.both(fn, reps=5),
+               plain_ms=plain_ms, library_ms=None, **roofline(nbytes, flops))
+    timer.release()
+    return out
+
+
+def phase_gps(torch, device, max_if_s: float = 40.0) -> dict:
+    """GPS alone at full width, from a cold start: the service loop of
+    ``GpsReceiver.run`` (search, 0.4 s chunks through ``GpsManager.
+    process``, a solve every 2 s of IF) until a fix and a locked clock,
+    or ``max_if_s`` of IF.  The scene's ``next_block``, the manager's
+    ``process`` and ``solve`` are timed on the host around a sync."""
+    import asyncio
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
+    rec, rx, want, decoys = make_gps(device)
+    mgr, sky = rec.mgr, rec.source
+    times: dict[str, list] = {"scene": [], "process": [], "search": [],
+                              "solve": []}
+    fixes_at: list[float] = []              # IF seconds of each fix
+
+    def timed(name, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if name == "process" and len(a) > 1 and a[1]:
+                times["search"].append(ms)
+            else:
+                times[name].append(ms)
+            if name == "solve" and r is not None:
+                fixes_at.append(mgr.ticks / mgr.tp.fs)
+            return r
+        return run
+    sky.next_block = timed("scene", sky.next_block)
+    mgr.process = timed("process", mgr.process)
+    mgr.solve = timed("solve", mgr.solve)
+
+    async def drive():
+        task = asyncio.create_task(rec.run())
+        while not task.done():
+            await asyncio.sleep(0.02)
+            if (mgr.fixes > 0 and mgr.clock.locked) or \
+                    mgr.ticks / mgr.tp.fs >= max_if_s:
+                rec.stop()
+        await task
+    tracking.track_epochs.launches = 0      # the main path's run starts
+    t0 = time.perf_counter()
+    asyncio.run(drive())
+    wall = time.perf_counter() - t0
+    launches = tracking.track_epochs.launches   # ... and ends
+    if_s = mgr.ticks / mgr.tp.fs
+    st = rec.status()
+    # the fix: the manager's single-point solution from every satellite
+    # with a decoded ephemeris (its "all" set); beside it the EKF's
+    # output, which the reference's filter (and so the port) throws off
+    # when the set grows: the common receive time is dated from the
+    # latest transmit time, so the clock bias jumps by milliseconds of
+    # light time, and a reset keeps the filter's velocity and covariance
+    sols = {k: dict(nsat=v["nsat"], rms=float(v["rms"]),
+                    err_m=float(np.linalg.norm(v["pos"] - rx)))
+            for k, v in mgr.last_solutions.items()}
+    fix_err = sols["all"]["err_m"] if "all" in sols else None
+    ekf_err = (float(np.linalg.norm(mgr.last_fix - rx))
+               if mgr.last_fix is not None else None)
+    tracked = set(mgr.channels)
+    by_set = {k: (v["nsat"], round(v["rms"], 2), round(v["err_m"], 2))
+              for k, v in sols.items()}
+    log(f"  {if_s:.1f} s of IF in {wall:.2f} s wall (IF/wall "
+        f"{if_s / wall:.2f}); kernel 6 launched {launches} times; tracking "
+        f"{sorted(tracked)} (the sky: {sorted(want)}, decoys "
+        f"{sorted(decoys)}); fixes {mgr.fixes} at IF s "
+        f"{[round(t, 1) for t in fixes_at]}; solutions by set (satellites, "
+        f"rms m, error m) {by_set}; "
+        f"EKF error {ekf_err if ekf_err is None else round(ekf_err, 2)} m; "
+        f"clock {mgr.clock.correction_ppm:+.4f} ppm (injected "
+        f"{GPS_PPM:+.1f}), locked {mgr.clock.locked}; service errors "
+        f"{rec.errors}")
+    check(rec.errors == 0, f"the GPS service logged {rec.errors} errors")
+    check(launches > 0, "kernel 6 was not launched by the main path")
+    check(tracked == want, f"tracked {sorted(tracked)}, sky {sorted(want)}")
+    check(not (tracked & decoys), f"a decoy is tracked: {tracked & decoys}")
+    check(mgr.fixes > 0 and fix_err is not None and fix_err < 60.0,
+          f"no fix within 60 m in {if_s:.1f} s of IF: {fix_err}")
+    check(mgr.clock.locked and abs(mgr.clock.correction_ppm - GPS_PPM)
+          < 0.15, f"clock {mgr.clock.correction_ppm} ppm")
+    med = {k: (statistics.median(v) if v else None)
+           for k, v in times.items()}
+    return dict(if_s=if_s, wall_s=wall, if_over_wall=if_s / wall,
+                launches=launches, chunks=len(times["scene"]),
+                searches=len(times["search"]), fixes=mgr.fixes,
+                fixes_at_if_s=fixes_at, fix_err_m=fix_err,
+                ekf_err_m=ekf_err, solutions=sols,
+                clock_ppm=mgr.clock.correction_ppm,
+                tracked=sorted(tracked), status_tracking=st["tracking"],
+                ms_median=med, ms_all={k: [round(x, 3) for x in v]
+                                       for k, v in times.items()})
+
+
+async def admin_gps_reply(server) -> dict | None:
+    """What the ADMIN socket's ``SET gps`` answers, over an in-process
+    socket (None without aiohttp, whose message types the loop reads)."""
+    from flydog_sdr_gps_tpu_torch.server import kiwi_server
+    if kiwi_server.web is None:
+        return None
+    sock = AdminSock(["SET auth t=admin p=", "SET gps"])
+    await server._ws_admin_loop(sock, lambda: [], "127.0.0.1")
+    reply = sock.of(b"GPS ")
+    check(len(reply) == 1, "the ADMIN socket's gps command did not answer")
+    return json.loads(reply[0][4:])
 
 
 # ---------------------------------------------------------------------------
@@ -1365,6 +1639,7 @@ def main(argv: list[str]) -> int:
     timer = Timer(torch)
     log("phase 1: kernels vs plain versions")
     kern = phase_kernels(torch, device, timer, c_main=4096, block=2048)
+    kern["gps_track"] = gps_kernel_case(torch, timer, device)
     for name, r in kern.items():
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         lib = (f"{r['library_call']} {r['library_ms']:.4f} ms (layout change "
@@ -1442,8 +1717,35 @@ def main(argv: list[str]) -> int:
         f"{sr['loop_lag_ms']['max']:.3f} ({sr['loop_lag_ms']['n']} sleeps); "
         f"aiohttp present: {sr['aiohttp']}  [{card}]")
     check(sr["realtime_factor"] >= 1.0, "the server does not hold real time")
+    log("phase 6a: GPS alone, cold start, 12 rows, 0.4 s chunks of the "
+        "run_server --gps sky on the card")
+    g = phase_gps(torch, device)
+    med = g["ms_median"]
+    log(f"  ms a chunk (median, host clock around a sync): scene "
+        f"{med['scene']:.3f}, process without a search (kernel 6, the "
+        f"packed fetch, the host's bit sync and nav decode) "
+        f"{med['process']:.3f}, of which kernel 6 alone "
+        f"{kern['gps_track']['ms']:.3f} (phase 1, same shape), a chunk with "
+        f"a search {med['search']:.3f} ({g['searches']} searches), solve "
+        f"{med['solve'] if med['solve'] is None else round(med['solve'], 3)}"
+        f"; IF/wall {g['if_over_wall']:.3f} over {g['chunks']} chunks  "
+        f"[{card}]")
+    log("phase 6b: the server of phase 5 with the GPS receiver beside it "
+        "(the run_server --gps sky, paced at real time)")
+    gps_rec, _rx, _want, _decoys = make_gps(device, realtime=True)
+    srg = phase_server(torch, device, channels=4096, block=2048,
+                       nblocks=24, gps=gps_rec)
+    log(f"  served by the server with GPS: per block median "
+        f"{srg['ms_median']} ms, min {srg['ms_min']}, max {srg['ms_max']}; "
+        f"realtime factor {srg['realtime_factor']} (phase 5 without GPS: "
+        f"{sr['ms_median']} ms, factor {sr['realtime_factor']}); encode "
+        f"{srg['encode_ms_per_block']:.3f}, fan-out "
+        f"{srg['fanout_ms_per_block']:.3f} ms a block  [{card}]")
+    log(f"  per-block ms: {[round(v, 2) for v in srg['ms_blocks']]}")
+    check(srg["realtime_factor"] >= 1.0,
+          "the server with GPS does not hold real time")
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
-                   server=sr,
+                   server=sr, gps=g, server_gps=srg,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -1452,16 +1754,23 @@ def main(argv: list[str]) -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
 
     log(card)
+    # each path's counts were set to 0 just before it and read just after
+    paths = {"slice": sl["launches"], "serve": sv["launches"],
+             "server": sr["launches"],
+             "gps": {"gps_track": g["launches"]},
+             "server_gps": srg["launches"]}
+
+    def per_block(name):
+        if name == "gps_track":
+            return g["launches"] / g["chunks"]
+        return sl["launches_per_block"].get(
+            name, sv["launches"][name] / sv["blocks"])
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}/{src}",
              replaces=replaces,
-             launches=sl["launches"].get(name, 0) + sv["launches"][name]
-             + sr["launches"][name],
-             launches_slice=sl["launches"].get(name, 0),
-             launches_serve=sv["launches"][name],
-             launches_server=sr["launches"][name],
-             launches_per_block=sl["launches_per_block"].get(
-                 name, sv["launches"][name] / sv["blocks"]),
+             launches=sum(p.get(name, 0) for p in paths.values()),
+             **{f"launches_{k}": p.get(name, 0) for k, p in paths.items()},
+             launches_per_block=per_block(name),
              launches_per_block_unfused=sl[
                  "launches_per_block_unfused"].get(name),
              max_abs_err=kern[name]["max_abs_err"], ms=kern[name]["ms"],

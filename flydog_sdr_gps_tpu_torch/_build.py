@@ -50,6 +50,12 @@ _SIGNATURES = {
     # notch, decay and mu of the denoiser, stream
     "lms_chain_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _F, _F, _F, _F, _P),
+    # raw, code table, code_phase, code_rate, carr_phase, carr_freq,
+    # ip_prev, qp_prev (six in/out), active (bytes), code_len, boc,
+    # corr_half, outs, nch, n_ep, epoch, g1, g2, gf, gd, 1/n, fs/2pi,
+    # 1/f_L1, chip rate/fs, fc, stream
+    "gps_track_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -21,8 +21,14 @@ encoder state (:func:`chan_codec_from_ref`), so that a test can put a
 server of each package into the same state before the block it
 compares.
 
+The GPS subsystem converts as well: a reference ``TrackState``
+(:func:`track_state_from_ref`) and a whole ``GpsManager`` — tracking
+state, code table, channel bookkeeping with its nav assemblers, counters,
+clock discipline (:func:`gps_manager_from_ref`) — so that a test can run
+both managers on from one state.
+
 This module imports no jax: the caller converts the reference's arrays
-to numpy first.
+to numpy first (``np.array`` of a reference array leaf does).
 
 The two stage-2 branches carry different ``ddc.y_tail``: the fused
 branch keeps it UNROTATED, the unfused one ROTATED.  A converted state
@@ -31,12 +37,19 @@ therefore belongs to one branch, which :func:`state_from_ref` is told.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
 import torch
 
 from .models import rx_channel as rx
+from .models.gps import clock as gps_clock
+from .models.gps import ephemeris as gps_ephemeris
+from .models.gps import galileo as gps_galileo
+from .models.gps import manager as gps_manager
+from .models.gps import solver as gps_solver
+from .models.gps import tracking as gps_tracking
 from .models import waterfall as wf
 from .ops import agc as agc_ops
 from .ops import channelizer as chz
@@ -185,3 +198,68 @@ def chan_codec_from_ref(src_codec) -> dict[int, np.ndarray]:
             raise ValueError(f"channel {ch}: codec state is {st.shape}")
         out[int(ch)] = st
     return out
+
+
+# ---------------------------------------------------------------------------
+# the GPS subsystem
+# ---------------------------------------------------------------------------
+
+def track_state_from_ref(src, device: torch.device | str
+                         ) -> gps_tracking.TrackState:
+    """The reference's tracking ``TrackState`` (numpy or array leaves,
+    or a dict of them) -> the port's, on ``device``."""
+    return _plain_fields(gps_tracking.TrackState, src, device)
+
+
+def _host_copy(src, cls):
+    """A new ``cls`` holding a deep copy of ``src``'s attributes (the
+    reference's host objects: assemblers, ephemerides, the clock and the
+    position filter hold numbers, arrays and containers of them); an
+    ``eph`` attribute becomes the port's ``Ephemeris``."""
+    out = cls.__new__(cls)
+    for k, v in vars(src).items():
+        if k == "eph":
+            v = _host_copy(v, gps_ephemeris.Ephemeris)
+        else:
+            v = copy.deepcopy(v)
+        setattr(out, k, v)
+    return out
+
+
+def gps_channel_from_ref(src) -> gps_manager.GpsChannel:
+    """One reference ``GpsChannel`` (host bookkeeping, nav assembler and
+    all) -> the port's."""
+    kw = {}
+    for f in dataclasses.fields(gps_manager.GpsChannel):
+        v = getattr(src, f.name)
+        if f.name == "asm":
+            cls = (gps_galileo.InavAssembler
+                   if type(v).__name__ == "InavAssembler"
+                   else gps_ephemeris.SubframeAssembler)
+            v = _host_copy(v, cls)
+        else:
+            v = copy.deepcopy(v)
+        kw[f.name] = v
+    return gps_manager.GpsChannel(**kw)
+
+
+def gps_manager_from_ref(src, mgr: gps_manager.GpsManager) -> None:
+    """Put the port's ``mgr`` into the state of the reference's
+    ``GpsManager`` ``src``: the tracking state and code table (onto
+    ``mgr.device``), the channels' bookkeeping, the sample counters and
+    buffers, the search cadence, the clock discipline and the position
+    filter.  Both must have the same capacity."""
+    if src.max_chans != mgr.max_chans:
+        raise ValueError(f"capacity {src.max_chans} into {mgr.max_chans}")
+    mgr._track_state = track_state_from_ref(src._track_state, mgr.device)
+    mgr._code_table = _tensor(src._code_table, mgr.device)
+    mgr.channels = {prn: gps_channel_from_ref(ch)
+                    for prn, ch in src.channels.items()}
+    for k in ("ticks", "samples_tracked", "_last_search", "_gal_deferred",
+              "search_interval_s", "fixes", "last_fix", "last_solutions",
+              "min_snr", "prns", "galileo_prns"):
+        setattr(mgr, k, copy.deepcopy(getattr(src, k)))
+    mgr._rem = np.array(src._rem, np.float32)
+    mgr._sbuf = np.array(src._sbuf, np.float32)
+    mgr.clock = _host_copy(src.clock, gps_clock.ClockDiscipline)
+    mgr.ekf = _host_copy(src.ekf, gps_solver.EkfSolver)

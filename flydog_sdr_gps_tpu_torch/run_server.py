@@ -1,15 +1,20 @@
 """Run a live KiwiSDR-protocol server with a synthetic RF scene.
 
 Usage: python -m flydog_sdr_gps_tpu_torch.run_server [--port 8073]
-       [--cpu] [--channels N]
+       [--cpu] [--channels N] [--gps [--gps-ppm P]]
 
 The counterpart of the reference's ``run_server.py``, with the same
 flags and the same scene: AM broadcast at 7.100 MHz (1 kHz music-ish
 tone), USB at 14.201 MHz, carrier at 10.000 MHz — enough to explore
 with the web UI.  The engine, the scene and the waterfall run on the
 card; without ``--cpu`` a missing card is an error, not a reason to run
-on the CPU.  ``--mesh``, ``--gps`` and ``--autorun`` are the flags of
-parts that are not ported yet and end with an error that says so.
+on the CPU.  ``--gps`` adds the GPS/Galileo receiver on a synthetic sky
+(8 GPS satellites, 3 decoy PRNs, 4 Galileo E1B satellites, the
+oscillator off by ``--gps-ppm``): on the card the sky is synthesized
+there in 0.4 s chunks, with ``--cpu`` on the host in 0.1 s chunks, paced
+at real time; its fixes discipline the clock that tunes every channel.
+``--mesh`` and ``--autorun`` are the flags of parts that are not ported
+yet and end with an error that says so.
 """
 from __future__ import annotations
 
@@ -26,8 +31,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--cpu", action="store_true")
     p.add_argument("--channels", type=int, default=4)
     p.add_argument("--gps", action="store_true",
-                   help="run the GPS subsystem on a synthetic sky scene "
-                        "(not ported yet)")
+                   help="run the GPS subsystem on a synthetic sky scene")
     p.add_argument("--gps-ppm", type=float, default=0.4,
                    help="simulated oscillator error the GPS loop recovers")
     p.add_argument("--no-realtime", dest="realtime",
@@ -72,9 +76,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.mesh:
         p.error("--mesh waits for the port of the multi-device engine "
                 "(runtime/sharded_stream.py)")
-    if args.gps:
-        p.error("--gps waits for the port of the GPS subsystem "
-                "(models/gps, runtime/gps_service.py)")
     if args.autorun:
         p.error("--autorun waits for the port of the extensions and "
                 "server/autorun.py")
@@ -86,8 +87,8 @@ def build(args):
     import numpy as np
     import torch
     from .models import rx_channel as rx
-    from .runtime import (DeviceSceneSource, FileSource, StreamEngine,
-                          SyntheticSource, ThreadedSource)
+    from .runtime import (DeviceSceneSource, FileSource, GpsReceiver,
+                          StreamEngine, SyntheticSource, ThreadedSource)
     from .server import KiwiServer
 
     if args.cpu:
@@ -126,6 +127,26 @@ def build(args):
             noise_rms=3e-4, block=params.ddc.adc_block, device=device)
     eng = StreamEngine(params, src, device=device)
 
+    gps = None
+    if args.gps:
+        from .models.gps import manager as gps_manager
+        from .models.gps import scene as gps_scene
+        rx_pos = gps_scene.ecef_from_lla(47.37, 8.54, 450.0)
+        t0 = 345600.0 + 3.0
+        ephs = gps_scene.visible_constellation(rx_pos, t0, n_sats=8)
+        gal_ephs = gps_scene.visible_galileo(rx_pos, t0, n_sats=4)
+        sky = gps_scene.GpsScene(rx_pos, ephs, t0, duration=3600.0,
+                                 clock_ppm=args.gps_ppm, noise=0.9,
+                                 amplitude=0.5,
+                                 galileo_ephemerides=gal_ephs,
+                                 device="host" if args.cpu else device)
+        mgr = gps_manager.GpsManager(
+            prns=tuple(ephs) + (3, 7, 30),      # scene PRNs + decoys
+            galileo_prns=tuple(gal_ephs), device=device)
+        gps = GpsReceiver(sky, mgr, engine=eng,
+                          chunk_seconds=0.1 if args.cpu else 0.4,
+                          realtime=True)
+
     cfg = None
     if args.cfg or args.password or args.admin_password:
         from .utils.cfg import Config
@@ -136,7 +157,7 @@ def build(args):
             cfg.set("admin_password", args.admin_password)
 
     server = KiwiServer(eng, cfg=cfg, port=args.port,
-                        realtime=args.realtime, dx_path=args.dx)
+                        realtime=args.realtime, gps=gps, dx_path=args.dx)
     if args.inactivity_min:
         server.inactivity_min = args.inactivity_min
     if args.tlimit_min:

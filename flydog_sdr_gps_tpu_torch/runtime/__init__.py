@@ -1,9 +1,10 @@
 """Streaming runtime of the port: sample sources and the block engine."""
 
+from .gps_service import GpsReceiver
 from .source import (BlockRing, DeviceSceneSource, FileSource, Int24FileSource,
                      SampleSource, SyntheticSource, ThreadedSource)
 from .stream import ChannelCtl, PackedFetch, StreamEngine
 
 __all__ = ["BlockRing", "ChannelCtl", "DeviceSceneSource", "FileSource",
-           "Int24FileSource", "PackedFetch", "SampleSource", "StreamEngine",
-           "SyntheticSource", "ThreadedSource"]
+           "GpsReceiver", "Int24FileSource", "PackedFetch", "SampleSource",
+           "StreamEngine", "SyntheticSource", "ThreadedSource"]

@@ -29,8 +29,10 @@ so :meth:`KiwiServer.open_stream` takes any object of that surface and
 package.
 
 Not here yet, each raising where it is asked for: background decoders
-(``autorun=``), the GPS subsystem (``gps=``) and the engine split over
-several devices (the reference's non-fused serving branch).
+(``autorun=``) and the engine split over several devices (the
+reference's non-fused serving branch).  The GPS subsystem (``gps=``, a
+``runtime.GpsReceiver``) runs beside the block loop as the reference's
+does, started by :meth:`KiwiServer.start_tasks`.
 """
 
 from __future__ import annotations
@@ -407,7 +409,8 @@ class Connection:
                 "ac": sum(1 for c in s.conns.values()
                           if c.rx_chan is not None),
                 "ki": s.kicks,
-                "gf": 0,            # GPS fixes: no GPS subsystem yet
+                "gf": (s.gps.mgr.fixes
+                       if s.gps is not None else 0),
                 "ut": int(time.time() - s.start_time),
             }, separators=(",", ":")))
         elif cmd == "GET_USERS":
@@ -751,9 +754,6 @@ class KiwiServer:
             raise NotImplementedError(
                 "autorun= waits for the port of the extensions and "
                 "server/autorun.py (the decoders' slice)")
-        if gps is not None:
-            raise NotImplementedError(
-                "gps= waits for the port of the GPS subsystem")
         if not hasattr(engine, "run_block_gather"):
             raise NotImplementedError(
                 "an engine without run_block_gather (the reference's "
@@ -810,6 +810,13 @@ class KiwiServer:
         # fetch uses two host buffers in turns, so nothing deeper is
         # safe: the block loop refuses it.
         self.pipeline_depth = 2
+        # GPS subsystem (a runtime.gps_service.GpsReceiver): searches,
+        # tracks and solves in the background; clock corrections retune
+        # every DDC NCO (`rx/rx_sound.cpp:334-344`)
+        self.gps = gps
+        if gps is not None and gps.engine is None:
+            gps.engine = engine
+        self._gps_task = None
         # per-block accounting of the block loop, for measurement
         # scripts: when each of the last blocks was started
         # (time.monotonic), and host seconds spent in the payload
@@ -1088,9 +1095,14 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         eng = self.engine
         users = sum(1 for c in self.conns.values()
                     if c.rx_chan is not None)
-        # what the reference reports without a GPS subsystem and
-        # without background decoders, neither of which is here yet
         gps_pos, gps_good, gps_fixes = "(0, 0)", 0, 0
+        if self.gps is not None:
+            gst = self.gps.status()
+            gps_good = gst["tracking"]
+            gps_fixes = gst["fixes"]
+            if gst["fix"] is not None:
+                lat, lon, _alt = gst["fix"]
+                gps_pos = f"({lat:.6f}, {lon:.6f})"
         fields = {
             "status": "active",
             "offline": "no",
@@ -1345,8 +1357,10 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                     authkey_cb=self.authkey))
             elif cmd == "gps":
                 # GPS control/status tab (`ui/admin.cpp` GPS tab)
+                st = ({"enabled": False} if self.gps is None
+                      else dict(self.gps.status(), enabled=True))
                 await ws.send_bytes(b"GPS " + json.dumps(
-                    {"enabled": False}, separators=(",", ":")).encode())
+                    st, separators=(",", ":")).encode())
             elif cmd == "dx_list":
                 rows = [[gid] + lab.to_json() for gid, lab in
                         enumerate(self.dx.labels)]
@@ -1447,9 +1461,30 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         await self._restart_event.wait()
 
     async def http_gps(self, request):
-        """GPS subsystem status as JSON: what the reference answers
-        when it runs without one (the subsystem is not ported yet)."""
-        return web.Response(text=json.dumps({"enabled": False}),
+        """Full GPS subsystem status as JSON: tracked PRNs with az/el,
+        solutions per solver set, clock discipline (the data behind the
+        reference's GPS admin tab / sky map, `gps/stat.cpp`).
+
+        ``?iq=<prn>`` returns the channel's recent prompt I/Q pairs —
+        the per-channel IQ logger behind the admin IQ scatter plot
+        (CmdIQLogGet, `gps/solve.cpp:585-599`)."""
+        if self.gps is None:
+            return web.Response(text=json.dumps({"enabled": False}),
+                                content_type="application/json")
+        if "iq" in request.query:
+            try:
+                prn = int(request.query["iq"])
+            except ValueError:
+                return web.Response(status=400, text="bad prn")
+            ch = self.gps.mgr.channels.get(prn)
+            iq = ([[round(float(i), 1), round(float(q), 1)]
+                   for i, q in ch.iq_log] if ch is not None else [])
+            return web.Response(
+                text=json.dumps({"prn": prn, "iq": iq}),
+                content_type="application/json")
+        st = dict(self.gps.status())
+        st["enabled"] = True
+        return web.Response(text=json.dumps(st),
                             content_type="application/json")
 
     async def http_ver(self, request):
@@ -1978,8 +2013,9 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                 pass
 
     def start_tasks(self) -> None:
-        """Start the serving core (block loop, policy loop) on the
-        running event loop, without the HTTP front."""
+        """Start the serving core (block loop, policy loop, and the GPS
+        receiver when there is one) on the running event loop, without
+        the HTTP front."""
         # the loop's DEFAULT executor has only cpu+4 threads (6 on a
         # small host); the step, the fetch wait, the encode, the WF
         # ingest and extension work all run there, so a full pool can
@@ -1998,6 +2034,8 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         self._block_task = asyncio.create_task(self.block_loop())
         self._policy_task = asyncio.create_task(
             self.policy_loop(self.policy_period))
+        self._gps_task = (asyncio.create_task(self.gps.run())
+                          if self.gps is not None else None)
 
     async def start(self):
         """Listen on ``self.port`` (0: any free port; the bound one is
@@ -2020,3 +2058,7 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             self._policy_task.cancel()
         for conn in list(self.conns.values()):
             conn.close_sender()
+        if self.gps is not None:
+            self.gps.stop()
+            if self._gps_task is not None:
+                self._gps_task.cancel()

@@ -358,3 +358,146 @@ def test_served_block_equals_run_block_on_card(card):
         pending = (handle, want.cpu().numpy())
     np.testing.assert_array_equal(pending[0].result(), pending[1])
     assert noise.lms_chain_block.launches > 0
+
+
+# -- kernel 6: the GPS/Galileo tracking bank ---------------------------------
+
+_GPS_IF = {}
+
+
+def _gps_if(n_ep=400):
+    """1-bit IF (n_ep, 16368) of two C/A and two E1B satellites, one of
+    each with its code phase at the code-period boundary, so that the
+    prompt's split falls inside the first epochs' windows."""
+    if n_ep not in _GPS_IF:
+        from flydog_sdr_gps_tpu_torch.models.gps import cacode, galileo
+        rng = np.random.default_rng(11)
+        n = 16368 * n_ep
+        t = np.arange(n, dtype=np.float64) / 16.368e6
+        x = 0.5 * rng.standard_normal(n)
+        for prn, cp, fd, e1b in ((9, 300.0, 1500.0, False),
+                                 (14, 1022.9, -2200.0, False),
+                                 (3, 2000.25, 800.0, True),
+                                 (5, 4091.8, -1200.0, True)):
+            chips = cp + t * 1.023e6 * (1 + fd / 1.57542e9)
+            idx = np.floor(chips).astype(np.int64)
+            if e1b:
+                c = galileo.e1b_code(prn).astype(np.float64)[idx % 4092]
+                c = c * np.where(chips - idx < 0.5, 1.0, -1.0)
+                c = c * np.where((idx // 4092) % 2 == 0, 1.0, -1.0)
+            else:
+                c = cacode.ca_code_any(prn).astype(np.float64)[idx % 1023]
+            x += 0.6 * c * np.cos(2 * np.pi * (4.092e6 + fd) * t)
+        _GPS_IF[n_ep] = np.sign(x).astype(np.float32).reshape(n_ep, 16368)
+    return _GPS_IF[n_ep]
+
+
+def _gps_bank(rows, device):
+    """Up to 12 rows: C/A, E1B (BOC), an inactive row, the two rows at
+    the code-period boundary, then C/A rows of absent PRNs, every third
+    of them inactive."""
+    from flydog_sdr_gps_tpu_torch.models.gps import galileo, tracking
+    tp = tracking.TrackParams()
+    st, tab = tracking.empty_track_state(tp, rows, device=device)
+    spec = [(9, 300.2, 1530.0, False), (3, 2000.15, 820.0, True),
+            (22, 100.0, 0.0, False), (14, 1022.8, -2230.0, False),
+            (5, 4091.7, -1180.0, True)]
+    spec += [(p, 37.0 * p, 250.0 * (p - 20), False) for p in range(23, 30)]
+    for i, (prn, cp, dop, e1b) in enumerate(spec[:rows]):
+        tracking.activate_channel(
+            tp, st, tab, i, prn, cp, dop,
+            code=galileo.e1b_code(prn) if e1b else None, boc=e1b)
+        if i == 2 or (i > 5 and i % 3 == 0):
+            tracking.deactivate_channel(st, i)
+    return tp, st, tab
+
+
+@pytest.mark.parametrize("n_ep", [1, 7, 400])
+@pytest.mark.parametrize("rows", [1, 5, 12])
+def test_gps_track_kernel_matches_plain(card, rows, n_ep):
+    """Sums within 1e-3 x max|ip|, code phase within 1e-3 chip, carrier
+    frequency within 1e-6 relative (the plain version does the kernel's
+    arithmetic; only the sums' order differs)."""
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
+    tp, st, tab = _gps_bank(rows, card)
+    raw = torch.as_tensor(_gps_if()[:n_ep], device=card)
+    s_k, s_p = st.clone(), st.clone()
+    launches = tracking.track_epochs.launches
+    _, o_k = tracking.track_epochs(tp, s_k, tab, raw)
+    _, o_p = tracking.track_epochs_plain(tp, s_p, tab, raw)
+    torch.cuda.synchronize()
+    assert tracking.track_epochs.launches == launches + 1
+    scale = float(o_p["ip"].abs().max())
+    for k in ("ip", "qp", "ip_pre", "qp_pre"):
+        assert float((o_k[k] - o_p[k]).abs().max()) <= 1e-3 * scale, k
+    for a, b in ((o_k["code_phase"], o_p["code_phase"]),
+                 (s_k.code_phase, s_p.code_phase)):
+        assert float((a - b).abs().max()) <= 1e-3
+    for a, b in ((o_k["carr_freq"], o_p["carr_freq"]),
+                 (s_k.carr_freq, s_p.carr_freq)):
+        assert float(((a - b).abs() / b.abs()).max()) <= 1e-6
+    for name in ("carr_phase", "code_rate", "ip_prev", "qp_prev"):
+        a, b = getattr(s_k, name), getattr(s_p, name)
+        tol = 1e-3 * scale if name.endswith("prev") else 1e-5
+        assert float((a - b).abs().max()) <= tol, name
+    # inactive rows keep their loop state
+    idle = ~st.active
+    assert torch.equal(s_k.code_phase[idle], st.code_phase[idle])
+    assert torch.equal(s_k.carr_freq[idle], st.carr_freq[idle])
+
+
+def test_gps_track_kernel_refuses_arguments_off_the_card(card):
+    """A code table or a state field that is not on the card (or not of
+    its dtype) is refused by name before the launch."""
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
+    tp, st, tab = _gps_bank(3, card)
+    raw = torch.as_tensor(_gps_if()[:2], device=card)
+    launches = tracking.track_epochs.launches
+    with pytest.raises(ValueError, match="code_table"):
+        tracking.track_epochs(tp, st.clone(), tab.cpu(), raw)
+    bad = st.clone()
+    bad.active = bad.active.to(torch.uint8)
+    with pytest.raises(ValueError, match="state.active"):
+        tracking.track_epochs(tp, bad, tab, raw)
+    bad = st.clone()
+    bad.carr_freq = bad.carr_freq.cpu()
+    with pytest.raises(ValueError, match="state.carr_freq"):
+        tracking.track_epochs(tp, bad, tab, raw)
+    assert tracking.track_epochs.launches == launches
+
+
+def test_gps_receiver_runs_its_device_work_on_its_own_stream(card):
+    """``GpsReceiver`` with a manager on the card: the scene, the search
+    and kernel 6 run on the receiver's stream, not the default one the
+    engine's block program uses; the sky is still searched and tracked."""
+    import asyncio
+
+    from flydog_sdr_gps_tpu_torch.models.gps import manager, scene, tracking
+    from flydog_sdr_gps_tpu_torch.runtime import GpsReceiver
+    rx_pos = scene.ecef_from_lla(47.37, 8.54, 450.0)
+    ephs = scene.visible_constellation(rx_pos, 345603.0, n_sats=3)
+    sky = scene.GpsScene(rx_pos, ephs, 345603.0, duration=5.0,
+                         clock_ppm=0.4, noise=0.8, amplitude=0.6,
+                         device=card)
+    mgr = manager.GpsManager(max_chans=4, prns=tuple(ephs), device=card)
+    rec = GpsReceiver(sky, mgr, chunk_seconds=0.1)
+    seen = []
+    for obj, name in ((sky, "next_block"), (mgr, "process")):
+        def spy(*a, _fn=getattr(obj, name)):
+            seen.append(torch.cuda.current_stream(card))
+            return _fn(*a)
+        setattr(obj, name, spy)
+    launches = tracking.track_epochs.launches
+
+    async def drive():
+        task = asyncio.create_task(rec.run())
+        while mgr.ticks < 4 * rec.chunk and not task.done():
+            await asyncio.sleep(0.01)
+        rec.stop()
+        await task
+    asyncio.run(drive())
+    assert rec.errors == 0 and len(seen) >= 8
+    assert rec._stream != torch.cuda.default_stream(card)
+    assert all(s == rec._stream for s in seen)
+    assert set(mgr.channels) == set(ephs)
+    assert tracking.track_epochs.launches > launches

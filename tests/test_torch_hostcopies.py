@@ -473,3 +473,257 @@ def test_extensions_bit_for_bit(name):
         out.append(msgs)
     assert out[0] == out[1]
     assert any(out[0])
+
+
+# -- the GPS subsystem's host modules ----------------------------------------
+
+from flydog_sdr_gps_tpu.models.gps import cacode as jcacode  # noqa: E402
+from flydog_sdr_gps_tpu.models.gps import clock as jclock  # noqa: E402
+from flydog_sdr_gps_tpu.models.gps import e1b_codes as je1b  # noqa: E402
+from flydog_sdr_gps_tpu.models.gps import ephemeris as jeph  # noqa: E402
+from flydog_sdr_gps_tpu.models.gps import galileo as jgal  # noqa: E402
+from flydog_sdr_gps_tpu.models.gps import solver as jsolver  # noqa: E402
+from flydog_sdr_gps_tpu.models.gps import tracking as jtracking  # noqa: E402
+from flydog_sdr_gps_tpu.runtime import gps_service as jgps  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import cacode as tcacode  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import clock as tclock  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import e1b_codes as te1b  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import ephemeris as teph  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import galileo as tgal  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import solver as tsolver  # noqa: E402
+from flydog_sdr_gps_tpu_torch.models.gps import (  # noqa: E402
+    tracking as ttracking)
+from flydog_sdr_gps_tpu_torch.runtime import gps_service as tgps  # noqa: E402
+
+
+def _eph(mod, prn=12):
+    e = mod.Ephemeris(prn=prn)
+    e.week = 245
+    e.toc = 302400.0; e.af0 = 4.2e-5; e.af1 = 1.1e-11; e.af2 = 0.0
+    e.iode = 77
+    e.crs = 23.5; e.delta_n = 4.5e-9; e.m0 = 1.2345
+    e.cuc = 2.4e-6; e.e = 0.0123; e.cus = 7.9e-6
+    e.sqrt_a = np.sqrt(26560e3); e.toe = 302400.0
+    e.cic = 5.5e-8; e.omega0 = -2.01; e.cis = -6.1e-8
+    e.i0 = 0.958; e.crc = 201.8; e.omega = 0.77
+    e.omega_dot = -8.1e-9; e.idot = 3.1e-10
+    return e
+
+
+def test_gps_constants_equal():
+    def public(mod):        # the caches (_E1B_CODES, ...) are state
+        return {k: v for k, v in _public_constants(mod).items()
+                if not k.startswith("_")}
+    for t, j in ((tcacode, jcacode), (teph, jeph), (tsolver, jsolver),
+                 (tgal, jgal)):
+        assert public(t) == public(j), t.__name__
+    assert tcacode.G2_DELAYS == jcacode.G2_DELAYS
+    np.testing.assert_array_equal(tgal.INAV_SYNC, jgal.INAV_SYNC)
+
+
+@pytest.mark.parametrize("group", ["navstar", "qzss_sbas"])
+def test_ca_codes_bit_for_bit(group):
+    prns = (range(1, 33) if group == "navstar"
+            else jcacode.QZSS_PRNS + jcacode.SBAS_PRNS)
+    for prn in prns:
+        np.testing.assert_array_equal(tcacode.ca_code_any(prn),
+                                      jcacode.ca_code_any(prn))
+        np.testing.assert_array_equal(
+            tcacode.ca_code_sampled(prn, 4.092e6, 16384),
+            jcacode.ca_code_sampled(prn, 4.092e6, 16384))
+
+
+def test_e1b_tables_bit_for_bit(tmp_path):
+    for prn in range(1, 51):
+        np.testing.assert_array_equal(te1b.e1b_chips(prn),
+                                      je1b.e1b_chips(prn))
+        np.testing.assert_array_equal(tgal.e1b_code(prn), jgal.e1b_code(prn))
+    path = tmp_path / "e1b.txt"
+    path.write_text("".join(f"{p} {je1b._HEX[p - 1]}\n" for p in (1, 7)))
+    got, ref = tcacode.load_e1b_codes(str(path)), \
+        jcacode.load_e1b_codes(str(path))
+    assert sorted(got) == sorted(ref)
+    for p in ref:
+        np.testing.assert_array_equal(got[p], ref[p])
+    from flydog_sdr_gps_tpu.models.gps import acquisition as jacq
+    from flydog_sdr_gps_tpu_torch.models.gps import acquisition as tacq
+    np.testing.assert_array_equal(
+        tgal.e1b_code_fft(tacq.AcqParams(), tgal.e1b_code(5)),
+        jgal.e1b_code_fft(jacq.AcqParams(), jgal.e1b_code(5)))
+
+
+def test_ephemeris_codec_and_parity_bit_for_bit():
+    rng = _rng(3)
+    d29 = d30 = 0
+    for _ in range(50):
+        data = int(rng.integers(0, 1 << 24))
+        w = teph.parity_encode(data, d29, d30)
+        assert w == jeph.parity_encode(data, d29, d30)
+        bad = w ^ (1 << int(rng.integers(0, 30)))
+        for word in (w, bad):
+            assert teph.parity_check(word, d29, d30) == \
+                jeph.parity_check(word, d29, d30)
+        d29, d30 = (w >> 1) & 1, w & 1
+    te, je = _eph(teph), _eph(jeph)
+    for sub in (1, 2, 3, 4, 5):
+        words = teph.encode_subframe(sub, te, tow_next=302406.0)
+        assert words == jeph.encode_subframe(sub, je, tow_next=302406.0)
+        dt, dj = teph.Ephemeris(prn=12), jeph.Ephemeris(prn=12)
+        assert teph.decode_subframe(words, dt) == \
+            jeph.decode_subframe(words, dj)
+        assert vars(dt) == vars(dj)
+    for t in (302400.0, 302500.5, 304000.0):
+        pt, ct = te.sat_pos(t)
+        pj, cj = je.sat_pos(t)
+        np.testing.assert_array_equal(pt, pj)
+        assert ct == cj
+
+
+def test_subframe_assembler_bit_for_bit():
+    e = _eph(jeph)
+    bits = []
+    d29 = d30 = 0
+    for sub in (1, 2, 3):
+        for w24 in jeph.encode_subframe(sub, e):
+            word = jeph.parity_encode(w24, d29, d30)
+            bits += [(word >> i) & 1 for i in range(29, -1, -1)]
+            d29, d30 = (word >> 1) & 1, word & 1
+    stream = [1 - 2 * b for b in [0] * 9 + bits + [0, 0]]
+    at, aj = teph.SubframeAssembler(prn=12), jeph.SubframeAssembler(prn=12)
+    for i in range(0, len(stream), 41):
+        assert at.feed(stream[i:i + 41]) == aj.feed(stream[i:i + 41])
+    assert at.events == aj.events and at.subframes == aj.subframes == 3
+    assert vars(at.eph) == vars(aj.eph) and at.eph.complete()
+
+
+def test_solvers_bit_for_bit():
+    rng = _rng(5)
+    truth = np.array([1113194.0, -4842330.0, 3985000.0])
+    sats = []
+    while len(sats) < 8:
+        v = rng.standard_normal(3)
+        v = v / np.linalg.norm(v) * 26560e3
+        if np.dot(v - truth, truth) > 0:
+            sats.append(v)
+    sat_pos = np.asarray(sats)
+    pr = np.linalg.norm(sat_pos - truth, axis=1) + 8521.77
+    pr = pr + rng.standard_normal(len(pr)) * 3.0
+    got, ref = tsolver.solve_ls(sat_pos, pr), jsolver.solve_ls(sat_pos, pr)
+    np.testing.assert_array_equal(got[0], ref[0])
+    assert got[1:] == ref[1:]
+    ekf_t, ekf_j = tsolver.EkfSolver(), jsolver.EkfSolver()
+    for k in range(5):
+        np.testing.assert_array_equal(
+            ekf_t.update(sat_pos, pr + k, dt=2.0),
+            ekf_j.update(sat_pos, pr + k, dt=2.0))
+    assert tsolver.lla_from_ecef(truth) == jsolver.lla_from_ecef(truth)
+    assert tsolver.az_el(truth, sat_pos[0]) == jsolver.az_el(truth,
+                                                            sat_pos[0])
+
+
+def test_clock_discipline_bit_for_bit():
+    rng = _rng(7)
+    ct, cj = tclock.ClockDiscipline(), jclock.ClockDiscipline()
+    t, ticks = 0.0, 0
+    for _ in range(40):
+        dt = 2.0 + rng.standard_normal() * 1e-3
+        t += dt
+        ticks = (ticks + int(round(dt * 124.9824e6))) % (1 << 48)
+        assert ct.update(t, ticks) == cj.update(t, ticks)
+        assert ct.locked == cj.locked
+    assert ct.correction_ppm == cj.correction_ppm
+
+
+def test_viterbi_crc_and_inav_bit_for_bit():
+    rng = _rng(9)
+    bits = rng.integers(0, 2, 114).astype(np.uint8)
+    coded = tgal.conv_encode_k7(np.concatenate([bits, np.zeros(6,
+                                                               np.uint8)]))
+    np.testing.assert_array_equal(
+        coded, jgal.conv_encode_k7(np.concatenate([bits, np.zeros(
+            6, np.uint8)])))
+    soft = (1.0 - 2.0 * coded) + 0.6 * rng.standard_normal(len(coded))
+    np.testing.assert_array_equal(tgal.viterbi_decode_k7(soft),
+                                  jgal.viterbi_decode_k7(soft))
+    sym = rng.standard_normal(240)
+    np.testing.assert_array_equal(tgal.inav_deinterleave(sym),
+                                  jgal.inav_deinterleave(sym))
+    np.testing.assert_array_equal(tgal.inav_interleave(sym),
+                                  jgal.inav_interleave(sym))
+    assert tgal.crc24q(bits) == jgal.crc24q(bits)
+    te, je = _eph(teph, 5), _eph(jeph, 5)
+    syms_t, syms_j = [], []
+    for wt in (1, 2, 3, 4, 5, 0):
+        wt_t = tgal.encode_word(wt, te, wn=245, tow=302400.0 + 2 * wt)
+        wt_j = jgal.encode_word(wt, je, wn=245, tow=302400.0 + 2 * wt)
+        np.testing.assert_array_equal(wt_t, wt_j)
+        dt, dj = teph.Ephemeris(prn=5), jeph.Ephemeris(prn=5)
+        assert tgal.decode_word(wt_t, dt) == jgal.decode_word(wt_j, dj)
+        assert vars(dt) == vars(dj)
+        syms_t.extend(1.0 - 2.0 * tgal.encode_nominal_page(wt_t))
+        syms_j.extend(1.0 - 2.0 * jgal.encode_nominal_page(wt_j))
+    np.testing.assert_array_equal(syms_t, syms_j)
+    noisy = np.asarray(syms_t) + 0.5 * rng.standard_normal(len(syms_t))
+    at, aj = tgal.InavAssembler(prn=5), jgal.InavAssembler(prn=5)
+    for i in range(0, len(noisy), 173):
+        assert at.feed(noisy[i:i + 173]) == aj.feed(noisy[i:i + 173])
+    assert at.events == aj.events and at.subframes == aj.subframes >= 5
+    assert vars(at.eph) == vars(aj.eph)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bit_sync_bit_for_bit(seed):
+    rng = _rng(seed)
+    bits = np.repeat(rng.choice([-1.0, 1.0], 120), 20)[13:]
+    ip = bits * 500.0 + 200.0 * rng.standard_normal(len(bits))
+    off_t, b_t = ttracking.bit_sync(ip)
+    off_j, b_j = jtracking.bit_sync(ip)
+    assert off_t == off_j and np.array_equal(b_t, b_j)
+    for settle in (300, 600):
+        assert ttracking.bit_sync_confident(ip, settle) == \
+            jtracking.bit_sync_confident(ip, settle)
+    assert ttracking.bit_sync(np.ones(45))[0] == jtracking.bit_sync(
+        np.ones(45))[0]
+
+
+class _Mgr:
+    """What ``GpsReceiver._apply_clock`` asks of a manager."""
+
+    def __init__(self, clock_mod, clk):
+        self.clock = clock_mod.ClockDiscipline(nominal_hz=16.368e6)
+        self.clock._count = 4
+        self.adc_clock_nom = 125e6
+        self._clk = clk
+        self.tp = types.SimpleNamespace(fs=16.368e6)
+
+    def adc_clock(self):
+        return self._clk
+
+
+class _Eng:
+    def __init__(self):
+        self.retuned = []
+        self.params = types.SimpleNamespace(num_channels=4)
+
+    def retune_all(self, clk):
+        self.retuned.append(clk)
+
+
+def test_gps_receiver_clock_gate_bit_for_bit():
+    """The stability gate: wandering estimates do not retune, settled
+    ones do, changes under ``min_clock_change_ppm`` do not."""
+    seq = [125e6 * (1 + d * 1e-6) for d in
+           (0.40, 0.41, 0.30, 0.42, 0.40, 0.401, 0.402, 0.4005, 0.4003,
+            0.4004, 0.55, 0.40)]
+    log = {}
+    for name, gmod, cmod in (("t", tgps, tclock), ("j", jgps, jclock)):
+        eng = _Eng()
+        rec = gmod.GpsReceiver(None, _Mgr(cmod, 0.0), engine=eng)
+        out = []
+        for clk in seq:
+            rec.mgr._clk = clk
+            rec._apply_clock()
+            out.append((rec.retunes, rec.adc_clock_corrected))
+        log[name] = (out, eng.retuned)
+    assert log["t"] == log["j"]
+    assert 0 < log["t"][0][-1][0] < len(seq)

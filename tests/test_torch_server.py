@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import AdminSock
 from flydog_sdr_gps_tpu.models import rx_channel as jrx
 from flydog_sdr_gps_tpu.ops import adpcm as jadpcm
 from flydog_sdr_gps_tpu.runtime import source as jsource
@@ -455,7 +456,10 @@ def test_late_joiner_is_served_from_the_largest_warm_bucket():
     asyncio.run(scenario())
 
 
-def test_slow_client_drops_oldest_stream_packets_and_counts():
+def test_slow_client_drops_oldest_stream_packets_and_counts(monkeypatch):
+    # a shorter send queue fills in fewer blocks; the policy is the same
+    monkeypatch.setattr(tks.Connection, "SENDQ_MAX", 16)
+
     async def scenario():
         server = _port_server()
         gate = asyncio.Event()
@@ -597,7 +601,7 @@ def test_pipeline_deeper_than_the_fetch_buffers_is_refused():
 
 
 @pytest.mark.parametrize("kw,word", [
-    (dict(autorun=["wspr:7038.6"]), "autorun"), (dict(gps=object()), "GPS")])
+    (dict(autorun=["wspr:7038.6"]), "autorun")])
 def test_unported_parts_are_refused_by_name(kw, word):
     eng = _port_server().engine
     with pytest.raises(NotImplementedError, match=word):
@@ -612,7 +616,7 @@ def test_engine_without_gather_is_refused():
 
 
 @pytest.mark.parametrize("flag,word", [
-    (["--mesh", "time=2,chan=2"], "multi-device"), (["--gps"], "GPS"),
+    (["--mesh", "time=2,chan=2"], "multi-device"),
     (["--autorun", "wspr:7038.6"], "autorun")])
 def test_run_server_refuses_unported_flags(flag, word, capsys):
     with pytest.raises(SystemExit) as e:
@@ -712,3 +716,148 @@ def test_server_core_runs_without_aiohttp(monkeypatch):
         finally:
             await server.stop()
     asyncio.run(scenario())
+
+
+# -- the GPS subsystem in the server ---------------------------------------
+
+class _Request:
+    def __init__(self, **query):
+        self.query = {k: str(v) for k, v in query.items()}
+
+
+def _gps_receiver(tmod, device="cpu"):
+    """A small host-path sky (3 GPS satellites, one decoy PRN) and a
+    4-row manager on the CPU, fed 0.1 s chunks as fast as they come."""
+    from flydog_sdr_gps_tpu_torch.models.gps import manager as tman
+    from flydog_sdr_gps_tpu_torch.models.gps import scene as tscene
+    rx_pos = tscene.ecef_from_lla(47.37, 8.54, 450.0)
+    t0 = 345600.0 + 3.0
+    ephs = tscene.visible_constellation(rx_pos, t0, n_sats=3)
+    sky = tscene.GpsScene(rx_pos, ephs, t0, duration=30.0, clock_ppm=0.4,
+                          noise=0.8, amplitude=0.6, device="host")
+    decoy = next(p for p in (3, 7, 30) if p not in ephs)
+    mgr = tman.GpsManager(max_chans=4, prns=tuple(ephs) + (decoy,),
+                          device=device)
+    return tmod.GpsReceiver(sky, mgr, chunk_seconds=0.1), ephs
+
+
+def test_server_runs_gps_and_reports_it():
+    """``KiwiServer(gps=...)`` on the CPU: the receiver starts with the
+    serving core, tracks the sky, and ADMIN ``gps``, ``/gps``,
+    ``/gps?iq=<prn>``, ``/status`` and the stats' ``gf`` report it with
+    the reference's keys."""
+    from flydog_sdr_gps_tpu.models.gps import manager as jman
+    from flydog_sdr_gps_tpu.runtime import gps_service as jgps
+    from flydog_sdr_gps_tpu_torch.runtime import gps_service as tgps
+    ref_keys = set(jgps.GpsReceiver(None, jman.GpsManager()).status())
+    gps, ephs = _gps_receiver(tgps)
+
+    async def scenario():
+        server = _port_server()
+        server = tks.KiwiServer(server.engine, realtime=False, port=0,
+                                gps=gps)
+        assert gps.engine is server.engine
+        conn, sock = await _listener(server, "c1")
+        server.start_tasks()
+        try:
+            await _wait(lambda: gps.mgr.ticks >= 3 * gps.chunk
+                        and len(gps.mgr.channels) >= 2, timeout=90,
+                        what="GPS chunks and tracked rows")
+            await conn.handle_set("SET STATS_UPD ch=0", "SND")
+            await _wait(lambda: any(b"stats_cb" in p for p in sock.sent),
+                        what="the stats reply")
+            admin = AdminSock(["SET auth t=admin p=", "SET gps"])
+            await server._ws_admin_loop(admin, lambda: [], "127.0.0.1")
+            resp = await server.http_gps(_Request())
+            prn = sorted(gps.mgr.channels)[0]
+            resp_iq = await server.http_gps(_Request(iq=prn))
+            status = (await server.http_status(_Request())).text
+        finally:
+            await server.stop()
+        return sock, admin, resp, resp_iq, status
+    sock, admin, resp, resp_iq, status = asyncio.run(scenario())
+    assert gps.errors == 0
+    assert set(gps.mgr.channels) <= set(ephs) and len(gps.mgr.channels) >= 2
+    reply = [p for p in admin.sent if p[:4] == b"GPS "]
+    st = json.loads(reply[0][4:])
+    assert st["enabled"] is True and set(st) == ref_keys | {"enabled"}
+    assert st["tracking"] == len(st["prns"]) >= 2
+    body = json.loads(resp.text)
+    assert body["enabled"] is True and set(body) == ref_keys | {"enabled"}
+    iq = json.loads(resp_iq.text)
+    assert set(iq) == {"prn", "iq"} and len(iq["iq"]) > 0
+    assert all(len(pair) == 2 for pair in iq["iq"])
+    assert f"gps_good={st['tracking']}" in status and "fixes=0" in status
+    stats = [p for p in sock.sent if b"stats_cb" in p]
+    assert stats and b"gf" in stats[-1]
+
+
+def test_gps_clock_retunes_like_the_reference():
+    """``GpsReceiver._apply_clock`` with a locked clock moves the port
+    engine's tuning words exactly as it moves the reference engine's."""
+    from flydog_sdr_gps_tpu.models.gps import manager as jman
+    from flydog_sdr_gps_tpu.ops import demod as jdemod
+    from flydog_sdr_gps_tpu.runtime import gps_service as jgps
+    from flydog_sdr_gps_tpu_torch.models.gps import manager as tman
+    from flydog_sdr_gps_tpu_torch.ops import demod as tdemod
+    from flydog_sdr_gps_tpu_torch.ops.nco import words_from_limbs
+    from flydog_sdr_gps_tpu_torch.runtime import gps_service as tgps
+    params = dict(num_channels=C, audio_block=BLOCK)
+    jeng = jstream.StreamEngine(jrx.RxParams(**params),
+                                jsource.SyntheticSource(**scene()))
+    teng = tstream.StreamEngine(trx.RxParams(**params),
+                                tsource.SyntheticSource(**scene()),
+                                device="cpu")
+    for eng, dm in ((jeng, jdemod), (teng, tdemod)):
+        for ch, f in enumerate((7.1e6, 14.2e6, 10.0e6, 21.3e6)):
+            eng.set_channel(ch, freq_hz=f, mode=dm.MODE_USB)
+    recs = [jgps.GpsReceiver(None, jman.GpsManager(), engine=jeng),
+            tgps.GpsReceiver(None, tman.GpsManager(device="cpu"),
+                             engine=teng)]
+    fs_true = recs[1].mgr.tp.fs * (1 + 0.4e-6)
+    words = []
+    for rec in recs:
+        for k in range(6):
+            rec.mgr.clock.update(2.0 * k, int(round(2.0 * k * fs_true)))
+        assert rec.mgr.clock.locked
+        before = rec.adc_clock_corrected
+        rec._apply_clock()
+        assert rec.retunes == 1 and rec.adc_clock_corrected != before
+        words.append(rec.engine.tuning.dphi1)
+    assert recs[0].adc_clock_corrected == recs[1].adc_clock_corrected
+    ref = words_from_limbs(np.array(words[0], np.int32))
+    assert torch.equal(words[1].cpu(), ref)
+    # ticks are whole samples: 0.4 ppm of 16.368 MHz over 2 s is 13.1
+    assert abs(recs[1].mgr.clock.correction_ppm - 0.4) < 0.01
+    # a second call with the same estimate changes nothing
+    recs[1]._apply_clock()
+    assert recs[1].retunes == 1
+
+
+def test_run_server_gps_starts_on_the_cpu():
+    """``run_server --gps --cpu``: the reference's sky (8 GPS satellites
+    where visible, decoys 3, 7, 30, 4 Galileo) on the host path in 0.1 s
+    chunks, paced at real time, the manager on the CPU; the receiver
+    starts with the serving core and searches its first chunk."""
+    args = run_server.parse_args(["--cpu", "--gps", "--channels", "2",
+                                  "--no-realtime", "--port", "0"])
+    assert args.gps and args.gps_ppm == 0.4
+
+    async def scenario():
+        server, _cfg, eng = run_server.build(args)
+        gps = server.gps
+        assert gps is not None and gps.engine is eng and gps.realtime
+        assert gps.source.device == "host" and gps.source.eps == 0.4e-6
+        assert gps.mgr.device.type == "cpu" and gps.mgr.max_chans == 12
+        assert gps.chunk == round(0.1 * gps.mgr.tp.fs)
+        assert {3, 7, 30} <= set(gps.mgr.prns)
+        assert len(gps.mgr.galileo_prns) == 4
+        server.start_tasks()
+        try:
+            await _wait(lambda: gps.mgr.ticks > 0, timeout=120,
+                        what="the first GPS chunk")
+        finally:
+            await server.stop()
+        return gps
+    gps = asyncio.run(scenario())
+    assert gps.errors == 0 and len(gps.mgr.channels) > 0

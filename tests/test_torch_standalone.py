@@ -5,10 +5,12 @@ originals.
 
 - a subprocess whose import system refuses ``jax``, ``jaxlib`` and
   ``flydog_sdr_gps_tpu`` imports every module of the port (the server,
-  its services, the web UI and the entry point among them) and runs two
-  ``StreamEngine`` blocks on the CPU (C=8, audio_block=256), then one
-  ``run_block_gather`` and one waterfall row from that block, then a
-  ``KiwiServer`` that serves a listener two blocks;
+  its services, the web UI, the entry point and the GPS subsystem among
+  them) and runs two ``StreamEngine`` blocks on the CPU (C=8,
+  audio_block=256), then one ``run_block_gather`` and one waterfall row
+  from that block, then a ``KiwiServer`` that serves a listener two
+  blocks, then a GPS cold search and a chunk of tracking on the
+  device-path sky;
 - a source scan finds no ``import``/``from`` of either in the port's
   package or ``chip_smoke.py``;
 - every public constant of ``numerology`` is equal, and the filter
@@ -68,7 +70,13 @@ def test_port_runs_without_jax_and_reference_package():
                        "ops.windows", "server.kiwi_server", "server.webui",
                        "server.services", "server.netproto", "run_server",
                        "utils.dx", "utils.eibi", "utils.security",
-                       "extensions.s_meter", "runtime.native", "ops.adpcm"):
+                       "extensions.s_meter", "runtime.native", "ops.adpcm",
+                       "models.gps.acquisition", "models.gps.tracking",
+                       "models.gps.scene", "models.gps.manager",
+                       "models.gps.galileo", "models.gps.ephemeris",
+                       "models.gps.solver", "models.gps.clock",
+                       "models.gps.cacode", "models.gps.e1b_codes",
+                       "runtime.gps_service", "convert"):
             assert f"{port.__name__}.{wanted}" in names, wanted
 
         from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -133,6 +141,23 @@ def test_port_runs_without_jax_and_reference_package():
         server, sock = asyncio.run(serve())
         assert sock.sent[0] == b"MSG badp=0"
         assert server.snr_history and server.snr_history[-1]["snr"] >= 0
+
+        # the GPS receiver: the device-path sky on the CPU, a cold
+        # search and a chunk of tracking
+        from flydog_sdr_gps_tpu_torch.models.gps import manager as gman
+        from flydog_sdr_gps_tpu_torch.models.gps import scene as gscene
+        from flydog_sdr_gps_tpu_torch.runtime import GpsReceiver
+        rxp = gscene.ecef_from_lla(47.37, 8.54, 450.0)
+        ephs = gscene.visible_constellation(rxp, 345603.0, n_sats=3)
+        sky = gscene.GpsScene(rxp, ephs, 345603.0, duration=5.0,
+                              clock_ppm=0.4, noise=0.8, amplitude=0.6,
+                              device="cpu")
+        mgr = gman.GpsManager(max_chans=4, prns=tuple(ephs), device="cpu")
+        mgr.process(sky.next_block(16368 * 20), search=True)
+        mgr.process(sky.next_block(16368 * 20))
+        assert set(mgr.channels) == set(ephs), sorted(mgr.channels)
+        assert all(c.epochs == 20 for c in mgr.channels.values())
+        assert GpsReceiver(sky, mgr).status()["tracking"] == len(ephs)
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("STANDALONE-OK")
     """)
@@ -152,11 +177,19 @@ def test_port_sources_import_neither_jax_nor_reference():
 
 def test_entry_points_default_to_the_card():
     import inspect
+    from flydog_sdr_gps_tpu_torch.models.gps import acquisition, tracking
+    from flydog_sdr_gps_tpu_torch.models.gps import galileo
+    from flydog_sdr_gps_tpu_torch.models.gps.manager import GpsManager
     from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
                                                   StreamEngine)
     from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
-    for cls in (StreamEngine, DeviceSceneSource, WfSubsystem):
+    for cls in (StreamEngine, DeviceSceneSource, WfSubsystem, GpsManager,
+                tracking.init_track_state, tracking.empty_track_state,
+                galileo.acquire_all_e1b):
         assert inspect.signature(cls).parameters["device"].default == "cuda"
+    # a numpy capture with no device named is searched on the card
+    assert inspect.signature(
+        acquisition.acquire_all).parameters["device"].default is None
 
 
 def _plain(value):
