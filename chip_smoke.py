@@ -21,7 +21,10 @@ What it does, in order (any failed check raises; exit code != 0):
    off and one lane on; the GPS tracking bank (kernel 6) on the 12 rows
    a cold search of the ``run_server --gps`` sky leaves (C/A and E1B rows,
    one C/A row dropped to make an inactive row), 40 epochs compared with
-   its plain version, 400 (one 0.4 s chunk) timed.  Times each kernel
+   its plain version, 400 (one 0.4 s chunk) timed; the spectral-NR
+   recurrences (kernel 7) on the spectra of two chained blocks of (2048,
+   4096) audio, both gain rules, every element of every state field
+   compared.  Times each kernel
    twice (with the card kept busy before the timed calls, ``ms``, and
    without, ``ms_host_paced``) and its plain version, and for kernel 2
    one library call (``conv1d``) that computes the same function.  Each
@@ -99,6 +102,12 @@ What it does, in order (any failed check raises; exit code != 0):
    socket's ``gps`` reply.  Fails under a factor of 1.0 or with no
    satellite tracked.
 
+Kernel 7's launch count is read around phases 3 to 6b and must be one a
+block in 4, 5 and 6b, where a lane has spectral NR on.  ``--profile``
+also prints kernel 6's clock64 split of an epoch (``csrc/gps_track.cu``
+built again with ``-DGPS_TRACK_CLOCKS`` and launched through
+``track_epochs``).
+
 The line before the last is a JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.  The script imports no jax.
@@ -142,6 +151,8 @@ KERNEL_SOURCES = {
     "lms_chain": ("csrc/lms.cu", "flydog_sdr_gps_tpu/ops/noise.py:296"),
     "gps_track": ("csrc/gps_track.cu",
                   "flydog_sdr_gps_tpu/models/gps/tracking.py:330"),
+    "spectral_nr": ("csrc/spectral_nr.cu",
+                    "flydog_sdr_gps_tpu/ops/noise.py:150 and :172"),
 }
 # the serving scene adds one WSPR-like 4-FSK emitter (8192 audio samples a
 # symbol = 4 blocks, 162 symbols, then idle to 200)
@@ -476,6 +487,82 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     return out
 
 
+def spectral_nr_case(torch, timer, device, c_main: int, block: int) -> dict:
+    """Kernel 7 against its plain version at the main path's shape: the
+    one-sided spectra (16, 129, c_main) of two chained blocks of audio
+    (a tone a channel in noise, the tone off in the first block), framed
+    as ``spectral_nr_block`` frames them, in ``torch.fft``'s layout; both
+    gain rules, each version carrying its own state from block to
+    block.  Every element of every field is held to 1e-6 of the plain
+    version's, relative (the kernel rounds each operation as PyTorch
+    does).  The row is the served rule, "subtract"."""
+    from flydog_sdr_gps_tpu_torch.ops import noise
+    gen = torch.Generator(device=device)
+    gen.manual_seed(77)
+    f = torch.empty((1, c_main), device=device).uniform_(0.05, 1.0,
+                                                         generator=gen)
+    rows = {}
+    for rule in ("subtract", "mmse"):
+        p = noise.SpectralNRParams(gain_rule=rule)
+        hop, fft = p.hop, p.fft_size
+        win = torch.as_tensor(np.hanning(fft + 1)[:fft].astype(np.float32),
+                              device=device)
+        st_k = noise.init_spectral_nr(p, c_main, device)
+        st_p = noise.init_spectral_nr(p, c_main, device)
+        errs = {}
+        for blk in range(2):
+            t = torch.arange(block + hop, device=device,
+                             dtype=torch.float32)[:, None] + blk * block
+            x = 0.3 * blk * torch.sin(f * t) + 0.1 * torch.randn(
+                (block + hop, c_main), generator=gen, device=device)
+            spec = torch.fft.fft(x.unfold(0, fft, hop).transpose(1, 2)
+                                 * win[None, :, None], dim=1)[:, :fft // 2 + 1]
+            got = noise.spectral_nr_gains(p, spec, st_k)
+            ref = noise.spectral_nr_gains_plain(p, spec, st_p)
+            for name, a, b in zip(("spec_g", "psd_smooth", "min_ring",
+                                   "xhat2"), got, ref):
+                err = float((a - b).abs().max())
+                rel = float(((a - b).abs() / b.abs()).nan_to_num(0.0).max())
+                check(bool(((a - b).abs() <= 1e-6 * b.abs()).all()),
+                      f"spectral_nr {rule} block {blk} {name}: an element "
+                      f"off by {rel} of its plain value > 1e-6")
+                e0, r0 = errs.get(name, (0.0, 0.0))
+                errs[name] = (max(e0, err), max(r0, rel))
+            st_k = dataclasses.replace(st_k, psd_smooth=got[1],
+                                       min_ring=got[2], xhat2=got[3])
+            st_p = dataclasses.replace(st_p, psd_smooth=ref[1],
+                                       min_ring=ref[2], xhat2=ref[3])
+        log(f"  spectral_nr {rule:<8} {tuple(spec.shape)}, 2 chained blocks: "
+            "max|err| (max relative err) " + ", ".join(
+                f"{k} {e:.3e} ({r:.3e})" for k, (e, r) in errs.items())
+            + " (bound 1e-6 relative, each element)")
+        mmse = rule == "mmse"
+        fn = lambda: noise.spectral_nr_gains(p, spec, st_k)
+        plain = lambda: noise.spectral_nr_gains_plain(p, spec, st_k)
+        # the spectrum in and out; the ring's min_window - 1 newest planes
+        # in (the oldest is dropped unread) and min_window planes out; the
+        # EMA and (mmse) xhat2 in and out; a frame, bin and channel: |X|^2 3, the EMA 3, the
+        # minimum 1, X * g 2, and the gain 6 (subtract: product, division,
+        # subtraction, two clamps, sqrt) or 36 (mmse: 9 for xi, 5 for v,
+        # 14 for E1 with its log or exp, 5 for g, 3 for xhat2)
+        mw = st_k.min_ring.shape[0]
+        nbytes = 2 * spec.numel() * 8 \
+            + (2 * mw - 1) * st_k.min_ring[0].numel() * 4 \
+            + 2 * st_k.psd_smooth.numel() * 4 \
+            + (2 * st_k.xhat2.numel() * 4 if mmse else 0)
+        flops = (9.0 + (36.0 if mmse else 6.0)) * spec.numel()
+        rows[rule] = dict(
+            max_abs_err=max(e for e, _ in errs.values()),
+            errors={k: dict(max_abs_err=e, max_rel_err=r)
+                    for k, (e, r) in errs.items()},
+            **timer.both(fn, reps=20), plain_ms=timer(plain, reps=3),
+            library_ms=None, **roofline(nbytes, flops))
+    timer.release()
+    row = rows["subtract"]
+    row["mmse"] = rows["mmse"]
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 2: DDC tone fidelity
 # ---------------------------------------------------------------------------
@@ -573,9 +660,10 @@ def run_blocks(torch, eng, n: int, keep: list):
 def phase_slice(torch, device, channels: int, block: int,
                 nfused: int = 8, nunfused: int = 2,
                 profile: bool = False) -> dict:
-    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels
+    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels, noise
     counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
-                "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll}
+                "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
+                "spectral_nr": noise.spectral_nr_gains}
 
     eng = make_engine(torch, device, channels, block, "fused")
     torch.cuda.reset_peak_memory_stats()
@@ -604,7 +692,10 @@ def phase_slice(torch, device, channels: int, block: int,
     log(f"  launches in the main path's run: {launches}; per fused block "
         f"{per_block}, per unfused block {per_block_unfused}")
     for k, n in launches.items():
-        check(n > 0, f"kernel {k} was not launched by the main path")
+        if k != "spectral_nr":
+            check(n > 0, f"kernel {k} was not launched by the main path")
+    # no lane of the slice has spectral NR on: its gate keeps kernel 7 off
+    check(launches["spectral_nr"] == 0, "kernel 7 ran with spectral NR off")
     audio = np.concatenate([a for a, _ in fused])
     settled = audio[len(audio) // 4:]       # past FIR fill and AGC attack
     f_am = dominant_hz(settled[:, 0], fs)
@@ -755,7 +846,8 @@ def phase_serve(torch, device, timer, channels: int, block: int,
     from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
     counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
                 "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
-                "lms_chain": noise.lms_chain_block}
+                "lms_chain": noise.lms_chain_block,
+                "spectral_nr": noise.spectral_nr_gains}
 
     eng = make_serve_engine(torch, device, channels, block)
     twin = make_serve_engine(torch, device, channels, block)   # run_block
@@ -843,7 +935,8 @@ def phase_serve(torch, device, timer, channels: int, block: int,
     del wants                               # the serving path's run ends
     log(f"  launches in the serving run ({nblocks} served blocks): "
         f"{launches}")
-    for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain"):
+    for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain",
+              "spectral_nr"):
         check(launches[k] == nblocks, f"kernel {k}: {launches[k]} launches "
               f"in {nblocks} served blocks, not one a block")
     check(launches["stage2"] == 0, "the served path is the fused one")
@@ -1130,7 +1223,8 @@ def phase_server(torch, device, channels: int, block: int,
     from flydog_sdr_gps_tpu_torch.server import packets
     counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
                 "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
-                "lms_chain": noise.lms_chain_block}
+                "lms_chain": noise.lms_chain_block,
+                "spectral_nr": noise.spectral_nr_gains}
     if gps is not None:
         from flydog_sdr_gps_tpu_torch.models.gps import tracking
         counters["gps_track"] = tracking.track_epochs
@@ -1268,7 +1362,8 @@ def phase_server(torch, device, channels: int, block: int,
     launches, blocks = info["launches"], info["blocks"]
     log(f"  aiohttp present: {have_aiohttp}; {blocks} blocks run, launches "
         f"{launches}")
-    for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain"):
+    for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain",
+              "spectral_nr"):
         check(launches[k] == blocks, f"kernel {k}: {launches[k]} launches in "
               f"{blocks} blocks of the server, not one a block")
     check(launches["stage2"] == 0, "the server's path is the fused one")
@@ -1449,31 +1544,35 @@ def gps_kernel_case(torch, timer, device) -> dict:
     base = st.clone()
     tracking.deactivate_channel(base, ca[0])
     raw = sky.next_block(rec.chunk).reshape(-1, tp.epoch)     # (400, 16368)
+    n_ep, nch, n = raw.shape[0], base.code_phase.shape[0], tp.epoch
     n_cmp = 40
-    s_k, s_p = base.clone(), base.clone()
-    _, o_k = tracking.track_epochs(tp, s_k, tab, raw[:n_cmp])
+    s_p, s_k = base.clone(), base.clone()
     _, o_p = tracking.track_epochs_plain(tp, s_p, tab, raw[:n_cmp])
+    _, o_k = tracking.track_epochs(tp, s_k, tab, raw[:n_cmp])
     scale = float(o_p["ip"].abs().max())
-    err = max(max_err(o_k[k], o_p[k])[0]
-              for k in ("ip", "qp", "ip_pre", "qp_pre"))
+    err = max(max_err(o_k[f], o_p[f])[0]
+              for f in ("ip", "qp", "ip_pre", "qp_pre"))
     cp_err = max(max_err(o_k["code_phase"], o_p["code_phase"])[0],
                  max_err(s_k.code_phase, s_p.code_phase)[0])
     cf_rel = max(float(((o_k["carr_freq"] - o_p["carr_freq"]).abs()
                         / o_p["carr_freq"].abs()).max()),
                  float(((s_k.carr_freq - s_p.carr_freq).abs()
                         / s_p.carr_freq.abs()).max()))
-    log(f"  gps_track (12 rows: {int(base.active.sum())} active, "
-        f"{int((base.active & is_boc).sum())} E1B; {n_cmp} epochs) "
-        f"max|err| of ip/qp/ip_pre/qp_pre {err:.3e} (bound "
-        f"{1e-3 * scale:.3e}); code phase {cp_err:.3e} chip (bound 1e-3); "
-        f"carr_freq {cf_rel:.3e} relative (bound 1e-6)")
     check(err <= 1e-3 * scale, f"gps_track sums: {err}")
     check(cp_err <= 1e-3 and cf_rel <= 1e-6, "gps_track loops")
-    s_t, s_pl = base.clone(), base.clone()
-    fn = lambda: tracking.track_epochs(tp, s_t, tab, raw)
-    plain = lambda: tracking.track_epochs_plain(tp, s_pl, tab, raw)
+    s_t = base.clone()
+    times = timer.both(lambda: tracking.track_epochs(tp, s_t, tab, raw),
+                       reps=5)
+    resident = tracking.max_active_clusters(nch)
+    log(f"  gps_track K={tracking.CLUSTER} blocks a row (12 rows: "
+        f"{int(base.active.sum())} active, {int((base.active & is_boc).sum())}"
+        f" E1B; {n_cmp} epochs) max|err| of ip/qp/ip_pre/qp_pre {err:.3e} "
+        f"(bound {1e-3 * scale:.3e}); code phase {cp_err:.3e} chip (bound "
+        f"1e-3); carr_freq {cf_rel:.3e} relative (bound 1e-6); clusters "
+        f"resident at once {resident}")
+    s_pl = base.clone()
     t0 = time.perf_counter()
-    _, o_full = plain()
+    _, o_full = tracking.track_epochs_plain(tp, s_pl, tab, raw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     # operations as the kernel is written, a sample and row: the phase
@@ -1481,7 +1580,6 @@ def gps_kernel_case(torch, timer, device) -> dict:
     # of E, P, L (2 each), the split's compare (1); the split sums (4)
     # for the samples before each epoch's code-period boundary, counted
     # from this run's code phases; ~40 a row and epoch for the loops
-    n_ep, nch, n = raw.shape[0], base.code_phase.shape[0], tp.epoch
     cl = base.code_len[None, :]
     t_b = (cl - torch.remainder(o_full["code_phase"], cl)) \
         / base.code_rate[None, :]
@@ -1490,11 +1588,58 @@ def gps_kernel_case(torch, timer, device) -> dict:
     # the chunk and the code table in; the state in and out; the outputs
     nbytes = (raw.numel() * 4 + tab.numel() * 4 + nch * (9 * 4 + 1)
               + nch * 6 * 4 + 9 * n_ep * nch * 4)
-    out = dict(max_abs_err=err, err_bound=1e-3 * scale, code_phase_err=cp_err,
-               carr_freq_rel_err=cf_rel, **timer.both(fn, reps=5),
+    out = dict(max_abs_err=err, code_phase_err=cp_err,
+               carr_freq_rel_err=cf_rel, err_bound=1e-3 * scale, **times,
+               cluster=tracking.CLUSTER, max_active_clusters=resident,
                plain_ms=plain_ms, library_ms=None, **roofline(nbytes, flops))
     timer.release()
     return out
+
+
+def gps_clock_split(torch, device) -> str:
+    """Where an epoch of kernel 6 goes: ``csrc/gps_track.cu`` built again
+    with ``-DGPS_TRACK_CLOCKS`` (the kernel then adds clock64 differences
+    of the parts of each epoch, for thread 0 of rank 0 and thread 160 of
+    the last rank of every row), launched through ``track_epochs`` on
+    phase 1's inputs (12 rows x 400 epochs)."""
+    import ctypes
+    from flydog_sdr_gps_tpu_torch import _build
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
+    out_dir = HERE / "build" / "gps_track_clocks"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libgps_track_clocks.so"
+    run([_build._nvcc(), *_build.NVCC_FLAGS, "-DGPS_TRACK_CLOCKS", "-o",
+         str(lib_path), str(HERE / PKG / "csrc" / "gps_track.cu")])
+    lib = _build.load(lib_path)
+    lib.gps_track_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.gps_track_clocks.restype = ctypes.c_int
+    rec, _rx, _want, _decoys = make_gps(device)
+    mgr, sky, tp = rec.mgr, rec.source, rec.mgr.tp
+    mgr.process(sky.next_block(rec.chunk), search=True)
+    base, tab = mgr._track_state.clone(), mgr._code_table
+    raw = sky.next_block(rec.chunk).reshape(-1, tp.epoch)
+    n_ep, nch = raw.shape[0], base.code_phase.shape[0]
+    parts = ("sample pass", "warp shuffles", "barrier 1", "warp 0 across "
+             "warps + DSMEM writes", "cluster barrier", "thread 0's tail",
+             "barrier 2")
+    tracking.track_epochs(tp, base.clone(), tab, raw, lib=lib)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    tracking.track_epochs(tp, base.clone(), tab, raw, lib=lib)
+    stop.record()
+    torch.cuda.synchronize()
+    clocks = np.zeros((nch, 2, len(parts)), np.int64)
+    _build.check(lib.gps_track_clocks(clocks.ctypes.data, nch),
+                 "gps_track_clocks")
+    per = clocks[base.active.cpu().numpy()].mean(axis=0) / n_ep
+    lines = [f"kernel 6 clock64 split at K={tracking.CLUSTER}, clocks an "
+             "epoch (mean of the active rows; thread 0 of rank 0 | thread "
+             f"160 of the last rank): {start.elapsed_time(stop):.4f} ms "
+             f"instrumented; total {per[0].sum():.0f} | {per[1].sum():.0f}"]
+    lines += [f"    {name:<36} {a:8.1f} | {b:8.1f}"
+              for name, a, b in zip(parts, per[0], per[1])]
+    return "\n".join(lines)
 
 
 def phase_gps(torch, device, max_if_s: float = 40.0) -> dict:
@@ -1618,6 +1763,7 @@ def main(argv: list[str]) -> int:
         return 1
     sys.path.insert(0, str(HERE))
     from flydog_sdr_gps_tpu_torch import _build
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1640,6 +1786,8 @@ def main(argv: list[str]) -> int:
     log("phase 1: kernels vs plain versions")
     kern = phase_kernels(torch, device, timer, c_main=4096, block=2048)
     kern["gps_track"] = gps_kernel_case(torch, timer, device)
+    kern["spectral_nr"] = spectral_nr_case(torch, timer, device,
+                                           c_main=4096, block=2048)
     for name, r in kern.items():
         r["share_of_bound"] = r["bound_ms"] / r["ms"]
         lib = (f"{r['library_call']} {r['library_ms']:.4f} ms (layout change "
@@ -1657,6 +1805,16 @@ def main(argv: list[str]) -> int:
         # a kernel cannot beat its bound: a share over 1 is a timing fault
         check(r["share_of_bound"] <= 1.05,
               f"{name}: {r['ms']} ms is under its bound {r['bound_ms']} ms")
+    k7 = kern["spectral_nr"]["mmse"]
+    log(f"  spectral_nr (the row above: the served rule, \"subtract\"); "
+        f"\"mmse\" {k7['ms']:.4f} ms ({k7['ms_host_paced']:.4f} "
+        f"host-paced), plain {k7['plain_ms']:.3f} ms, bound "
+        f"{k7['bound_ms']:.4f} ms by {k7['bound_by']}, share of bound "
+        f"{k7['bound_ms'] / k7['ms']:.3f}  [{card}]")
+    check(k7["bound_ms"] / k7["ms"] <= 1.05, "spectral_nr mmse is under its "
+          "bound")
+    if profile:
+        log(gps_clock_split(torch, device))
     lms = kern["lms_chain"]
     log(f"  lms_chain (the row above: every stage on) by enables, ms: "
         f"{lms['ms_by_enables']}; bounds of what the function needs, ms: "
@@ -1689,9 +1847,10 @@ def main(argv: list[str]) -> int:
         f"{sv['peak_mem_gb']} GB  [{card}]")
     log(f"  per-block ms: {[round(v, 2) for v in sv['ms_blocks']]}")
     log(f"  alone: wf ingest ms by zoom {sv['wf_ingest_ms']} (z14 takes two "
-        f"blocks), wf frame {sv['wf_frame_ms']:.4f} ms, spectral-NR loop "
-        f"{sv['spectral_nr_ms']:.3f} ms, fetch of a bucket-32 array "
-        f"{sv['fetch_ms_bucket32']:.4f} ms; bytes fetched a block "
+        f"blocks), wf frame {sv['wf_frame_ms']:.4f} ms, spectral_nr_block "
+        f"(two FFTs and kernel 7) {sv['spectral_nr_ms']:.3f} ms, fetch of "
+        f"a bucket-32 array {sv['fetch_ms_bucket32']:.4f} ms; bytes fetched "
+        f"a block "
         f"{sv['bytes_fetched']}  [{card}]")
     log(f"  served block without waterfall, ms: NR lanes on "
         f"{[round(v, 2) for v in sv['served_ms_nr_on']]}, LMS lane off "
@@ -1738,7 +1897,9 @@ def main(argv: list[str]) -> int:
     log(f"  served by the server with GPS: per block median "
         f"{srg['ms_median']} ms, min {srg['ms_min']}, max {srg['ms_max']}; "
         f"realtime factor {srg['realtime_factor']} (phase 5 without GPS: "
-        f"{sr['ms_median']} ms, factor {sr['realtime_factor']}); encode "
+        f"{sr['ms_median']} ms, factor {sr['realtime_factor']}; ratio "
+        f"{srg['realtime_factor'] / sr['realtime_factor']:.4f}, kernel 6 at "
+        f"K={tracking.CLUSTER}); encode "
         f"{srg['encode_ms_per_block']:.3f}, fan-out "
         f"{srg['fanout_ms_per_block']:.3f} ms a block  [{card}]")
     log(f"  per-block ms: {[round(v, 2) for v in srg['ms_blocks']]}")
@@ -1763,8 +1924,9 @@ def main(argv: list[str]) -> int:
     def per_block(name):
         if name == "gps_track":
             return g["launches"] / g["chunks"]
-        return sl["launches_per_block"].get(
-            name, sv["launches"][name] / sv["blocks"])
+        if sl["launches_per_block"].get(name):
+            return sl["launches_per_block"][name]
+        return sv["launches"][name] / sv["blocks"]
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=f"{PKG}/{src}",
              replaces=replaces,

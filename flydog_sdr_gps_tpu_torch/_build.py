@@ -34,6 +34,7 @@ LIB_NAME = "libflydog_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the entry points (all return int = cudaError_t)
 _SIGNATURES = {
     # y, out, phi0, dphi, h2 (host float*), C, k2, d2, m2, stream
@@ -56,6 +57,14 @@ _SIGNATURES = {
     # 1/f_L1, chip rate/fs, fc, stream
     "gps_track_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P),
+    # nch, int* out (clusters resident at once)
+    "gps_track_max_clusters": (_I, _P),
+    # spec, its frame and channel strides (complex values), out,
+    # psd_smooth in and out, min_ring in and out, xhat2 in and out, nfr,
+    # hb, C, min_window, mmse (0/1), alpha, floor_bias, over_subtract,
+    # floor^2, floor, a, 1 - a, stream
+    "spectral_nr_c64": (_P, _L, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -112,17 +121,24 @@ def build() -> Path:
     return out
 
 
+def load(path) -> ctypes.CDLL:
+    """A kernel library at ``path`` with the C signatures of the entry
+    points it has bound."""
+    dll = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(dll, name, None)
+        if fn is not None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    return dll
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            dll = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(dll, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            _lib = dll
+            _lib = load(build())
         return _lib
 
 

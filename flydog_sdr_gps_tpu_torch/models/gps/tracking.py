@@ -9,8 +9,9 @@ power monitoring (`gps/channel.cpp:376-553`).
 
 The JAX package runs the bank as one ``lax.scan`` over 1 ms epochs
 (`tracking.py:189-330`).  Here :func:`track_epochs` is the CUDA kernel
-``gps_track_f32`` (``csrc/gps_track.cu``: one block a row, the epochs
-in a loop inside the kernel) for CUDA tensors, and
+``gps_track_f32`` (``csrc/gps_track.cu``: a thread-block cluster of
+``CLUSTER`` blocks a row, each block a share of every epoch's samples,
+the epochs in a loop inside the kernel) for CUDA tensors, and
 :func:`track_epochs_plain` — a Python loop over epochs of exactly the
 reference's ``epoch_step`` — for tensors on the CPU.  The state is a
 dataclass of ``(capacity,)`` tensors that both update in place;
@@ -19,6 +20,7 @@ acquiring or dropping a satellite writes one row of them.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -30,6 +32,9 @@ from ...numerology import (CA_CHIP_RATE, E1B_CODELEN, GPS_FC, GPS_FS,
 from . import cacode
 
 NW = 1027                       # chips spanned by 1 ms + margin
+# the kernel's blocks a row, a thread-block cluster (kCluster of
+# csrc/gps_track.cu): the fastest of 1, 2, 4 and 8 (PERF.md §6)
+CLUSTER = 8
 # outputs a kernel launch writes, (n_ep, nch) each, in this order
 OUT_FIELDS = ("ip", "qp", "ip_pre", "code_phase", "qp_pre", "carr_freq",
               "dll_err", "pll_err", "cn0")
@@ -354,7 +359,7 @@ def track_epochs_plain(params: TrackParams, state: TrackState,
 
 
 def track_epochs(params: TrackParams, state: TrackState,
-                 code_table: torch.Tensor, raw: torch.Tensor):
+                 code_table: torch.Tensor, raw: torch.Tensor, lib=None):
     """Track over raw (n_epochs, epoch) 1-bit (+-1 float) samples.
 
     Updates ``state`` in place and returns (state, outputs) with
@@ -362,14 +367,22 @@ def track_epochs(params: TrackParams, state: TrackState,
     qp, ip_pre, qp_pre, the epoch-START code_phase, the new carr_freq,
     dll_err, pll_err and the cn0 proxy.  CPU tensors run the plain
     version; CUDA tensors the kernel, whose outputs are views of one
-    (9, n_epochs, nch) tensor in ``OUT_FIELDS`` order.
+    (9, n_epochs, nch) tensor in ``OUT_FIELDS`` order.  ``lib`` is the
+    kernel library to launch from: the package's build by default, or
+    one from ``_build.load`` (``chip_smoke.py``'s clock64 build).
     """
     nch = _check_args(state, code_table, raw, params.epoch)
     if raw.device.type == "cpu":
         return track_epochs_plain(params, state, code_table, raw)
     _build.require_cuda(raw, "track_epochs")
+    if params.epoch % 4 or params.epoch > 16 * NW:
+        raise ValueError(f"track_epochs: the kernel takes epochs of a "
+                         f"multiple of 4 samples up to {16 * NW}, got "
+                         f"{params.epoch}")
     n_ep = raw.shape[0]
     raw = raw.contiguous()
+    if raw.data_ptr() % 16:                 # the kernel reads float4s
+        raw = raw.clone()
     outs = torch.empty((len(OUT_FIELDS), n_ep, nch), dtype=torch.float32,
                        device=raw.device)
     if n_ep == 0:
@@ -388,7 +401,8 @@ def track_epochs(params: TrackParams, state: TrackState,
     f32 = np.float32
     stream = torch.cuda.current_stream(raw.device).cuda_stream
     # the kernel reads ``active`` as bytes: a torch.bool is one byte, 0/1
-    err = _build.lib().gps_track_f32(
+    lib = _build.lib() if lib is None else lib
+    err = lib.gps_track_f32(
         raw.data_ptr(), code_table.data_ptr(),
         *(getattr(state, k).data_ptr() for k in LOOP_FIELDS),
         state.active.data_ptr(), state.code_len.data_ptr(),
@@ -403,6 +417,16 @@ def track_epochs(params: TrackParams, state: TrackState,
 
 
 track_epochs.launches = 0
+
+
+def max_active_clusters(nch: int) -> int:
+    """How many of the kernel's clusters the card can hold at once
+    (``cudaOccupancyMaxActiveClusters``); a bank of ``nch`` rows runs all
+    its rows side by side when this is >= nch."""
+    out = ctypes.c_int(0)
+    _build.check(_build.lib().gps_track_max_clusters(
+        nch, ctypes.addressof(out)), "gps_track_max_clusters")
+    return out.value
 
 
 # ---------------------------------------------------------------------------

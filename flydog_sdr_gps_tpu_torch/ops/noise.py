@@ -7,9 +7,12 @@ chain.  The LMS chain is sequential in time; the reference runs it as a
 ``lax.scan`` (`noise.py:296`).  Here it is :func:`lms_chain_block`: the
 CUDA kernel ``lms_chain_f32`` (``csrc/lms.cu``, eight lanes a channel)
 for a CUDA tensor, its plain PyTorch loop for a tensor on the CPU.  The
-spectral-NR frame recurrences are plain PyTorch loops over the frames of
-a block (16 at audio_block=2048), gated off unless a channel enables
-them.
+spectral-NR frame recurrences (the reference's scans at `noise.py:150`
+and `:172`) are :func:`spectral_nr_gains`: the CUDA kernel
+``spectral_nr_c64`` (``csrc/spectral_nr.cu``, a thread a bin and
+channel) for a CUDA tensor, its plain PyTorch loops over the frames of a
+block (16 at audio_block=2048) for a tensor on the CPU; they run only
+when a channel enables spectral NR.
 """
 
 from __future__ import annotations
@@ -139,25 +142,14 @@ def _expint_e1(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v <= 1.0, small, big)
 
 
-def spectral_nr_block(params: SpectralNRParams, x: torch.Tensor,
-                      state: SpectralNRState
-                      ) -> tuple[torch.Tensor, SpectralNRState]:
-    """Spectral subtraction over one block of real audio (N, C).
+def spectral_nr_gains_plain(params: SpectralNRParams, spec: torch.Tensor,
+                            state: SpectralNRState):
+    """Plain version: the frame recurrences as loops over the frames.
 
-    N must be a multiple of ``hop``.  Output is delayed by one hop
-    (overlap-add latency).
+    spec: (nfr, fft/2+1, C) complex64, the block's one-sided spectra.
+    Returns (spec * gain, psd_smooth, min_ring, xhat2).
     """
-    n, c = x.shape
-    hop, fft = params.hop, params.fft_size
-    if n % hop or fft != 2 * hop:
-        raise ValueError(f"spectral NR needs N % {hop} == 0 and fft = 2*hop")
-    xin = torch.cat([state.in_tail, x])
-    nfr = n // hop
-    frames = xin.unfold(0, fft, hop).transpose(1, 2)       # (nfr, fft, C)
-    win = torch.as_tensor(np.hanning(fft + 1)[:fft].astype(np.float32),
-                          device=x.device)
-    spec = torch.fft.fft(frames * win[None, :, None], dim=1)
-    spec = spec[:, :fft // 2 + 1]                           # one-sided
+    nfr = spec.shape[0]
     psd = abs2(spec)
     # minimum statistics: EMA over frames, windowed minimum of block minima
     sm = state.psd_smooth
@@ -193,13 +185,112 @@ def spectral_nr_block(params: SpectralNRParams, x: torch.Tensor,
             min=params.gain_floor ** 2)
         g = torch.sqrt(gain)
         xhat2 = state.xhat2
+    return spec * g, psd_smooth, min_ring, xhat2
+
+
+def spectral_nr_gains(params: SpectralNRParams, spec: torch.Tensor,
+                      state: SpectralNRState):
+    """The frame recurrences of spectral NR over one block's spectra
+    (nfr, fft/2+1, C) complex64: the PSD's EMA, its block minimum and
+    the ring of block minima, the noise estimate, and each frame's gain
+    by ``params.gain_rule``.  Returns (spec * gain, psd_smooth,
+    min_ring, xhat2), the state's fields new tensors (xhat2 is the
+    state's own under the "subtract" rule, which does not advance it).
+
+    CPU tensors run the plain version; CUDA tensors the kernel
+    ``spectral_nr_c64``, which reads ``spec`` with its bins adjacent, as
+    ``torch.fft`` leaves them (any channel and frame stride; another
+    layout is copied into that one first), returns spec * gain in that
+    layout, and needs the state's fields contiguous float32 on the same
+    card.
+    """
+    if spec.device.type == "cpu":
+        return spectral_nr_gains_plain(params, spec, state)
+    _build.require_cuda(spec, "spectral_nr_gains")
+    hb = params.fft_size // 2 + 1
+    mw = params.min_window
+    if spec.dtype != torch.complex64 or spec.dim() != 3 or \
+            spec.shape[1] != hb or spec.shape[0] < 1:
+        raise ValueError(f"spectral_nr_gains: spec must be complex64 (nfr, "
+                         f"{hb}, C), got {spec.dtype} {tuple(spec.shape)}")
+    nfr, _, c = spec.shape
+    if spec.stride(1) != 1:
+        spec = spec.transpose(1, 2).contiguous().transpose(1, 2)
+    for name, shape in (("psd_smooth", (hb, c)), ("min_ring", (mw, hb, c)),
+                        ("xhat2", (hb, c))):
+        v = getattr(state, name)
+        if v.device != spec.device or v.dtype != torch.float32 or \
+                tuple(v.shape) != shape or not v.is_contiguous():
+            raise ValueError(f"spectral_nr_gains: state.{name} must be a "
+                             f"contiguous {shape} float32 tensor on "
+                             f"{spec.device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+    mmse = params.gain_rule == "mmse"
+    out = torch.empty((nfr, c, hb), dtype=torch.complex64, device=spec.device)
+    sm = torch.empty_like(state.psd_smooth)
+    ring = torch.empty_like(state.min_ring)
+    xhat2 = torch.empty_like(state.xhat2) if mmse else state.xhat2
+    f32 = np.float32
+    # the constants as the plain version's operations take them: a Python
+    # float meets a float32 tensor as float32; (1 - a) is taken in double
+    a = float(f32(params.dd_alpha))
+    stream = torch.cuda.current_stream(spec.device).cuda_stream
+    err = _build.lib().spectral_nr_c64(
+        spec.data_ptr(), spec.stride(0), spec.stride(2), out.data_ptr(),
+        state.psd_smooth.data_ptr(), sm.data_ptr(),
+        state.min_ring.data_ptr(), ring.data_ptr(), state.xhat2.data_ptr(),
+        xhat2.data_ptr(), nfr, hb, c, mw, int(mmse),
+        f32(params.smooth_alpha), f32(params.floor_bias),
+        f32(params.over_subtract), f32(params.gain_floor ** 2),
+        f32(params.gain_floor), f32(a), f32(1 - a), stream)
+    _build.check(err, "spectral_nr_c64")
+    spectral_nr_gains.launches += 1
+    return out.transpose(1, 2), sm, ring, xhat2
+
+
+spectral_nr_gains.launches = 0
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add of (nfr, 2*hop, C) frames at a hop of ``hop``:
+    ((nfr + 1) * hop, C).  Two strided slice-adds onto zeros; each
+    output sample is the same one addition as in a loop over frames
+    (a + b = b + a exactly), so the result is the loop's to the bit."""
+    nfr, fft, c = frames.shape
+    if fft != 2 * hop:
+        raise ValueError(f"overlap_add: frames of {fft}, hop {hop}")
+    y = torch.zeros((nfr + 1, hop, c), dtype=frames.dtype,
+                    device=frames.device)
+    y[:nfr] += frames[:, :hop]
+    y[1:] += frames[:, hop:]
+    return y.reshape((nfr + 1) * hop, c)
+
+
+def spectral_nr_block(params: SpectralNRParams, x: torch.Tensor,
+                      state: SpectralNRState
+                      ) -> tuple[torch.Tensor, SpectralNRState]:
+    """Spectral subtraction over one block of real audio (N, C).
+
+    N must be a multiple of ``hop``.  Output is delayed by one hop
+    (overlap-add latency).
+    """
+    n, c = x.shape
+    hop, fft = params.hop, params.fft_size
+    if n % hop or fft != 2 * hop:
+        raise ValueError(f"spectral NR needs N % {hop} == 0 and fft = 2*hop")
+    xin = torch.cat([state.in_tail, x])
+    frames = xin.unfold(0, fft, hop).transpose(1, 2)       # (nfr, fft, C)
+    win = torch.as_tensor(np.hanning(fft + 1)[:fft].astype(np.float32),
+                          device=x.device)
+    spec = torch.fft.fft(frames * win[None, :, None], dim=1)
+    spec = spec[:, :fft // 2 + 1]                           # one-sided
+    shaped, psd_smooth, min_ring, xhat2 = spectral_nr_gains(params, spec,
+                                                            state)
     # one-sided shaped spectrum -> real frames (conjugate symmetry)
-    out_frames = torch.fft.irfft(spec * g, n=fft, dim=1)
+    out_frames = torch.fft.irfft(shaped, n=fft, dim=1)
     out_frames = out_frames * win[None, :, None]
     # overlap-add (Hann^2 with 50% overlap sums to 1.5; normalize)
-    y = torch.zeros((n + hop, c), dtype=x.dtype, device=x.device)
-    for i in range(nfr):
-        y[i * hop:i * hop + fft] += out_frames[i]
+    y = overlap_add(out_frames.to(x.dtype), hop)
     y = y / 1.5
     out = y[:n].clone()
     out[:hop] += state.out_tail

@@ -364,6 +364,98 @@ def test_spectral_nr_matches_reference(rule):
         close(y, yr, LOOP, f"block {blk}")
         close(tst.psd_smooth, jst.psd_smooth, LOOP)
         close(tst.xhat2, jst.xhat2, LOOP)
+        close(tst.min_ring, jst.min_ring, LOOP)
+        close(tst.in_tail, jst.in_tail, LOOP)
+        close(tst.out_tail, jst.out_tail, LOOP)
+
+
+def _nr_spec(rng, nfr, c):
+    """One-sided spectra (nfr, 129, c) complex64 of noise with a tone."""
+    t = np.arange(256)[:, None] / FS
+    frames = (0.4 * np.sin(2 * np.pi * rng.uniform(200, 3000, c)[None] * t)
+              [None] + 0.1 * rng.standard_normal((nfr, 256, c)))
+    win = np.hanning(257)[:256][None, :, None]
+    return torch.as_tensor(np.fft.fft(frames * win, axis=1)[:, :129]
+                           .astype(np.complex64))
+
+
+@pytest.mark.parametrize("rule", ["subtract", "mmse"])
+def test_spectral_nr_gains_on_cpu_is_the_plain_version(rule):
+    """On CPU tensors the wrapper runs the plain version: every output
+    equal, no launch counted; the state it returns is new tensors but
+    xhat2 under "subtract", which that rule does not advance."""
+    p = tnoise.SpectralNRParams(gain_rule=rule)
+    rng = np.random.default_rng(31)
+    st = tnoise.init_spectral_nr(p, 5, "cpu")
+    st = dataclasses.replace(st, xhat2=torch.as_tensor(
+        rng.uniform(0, 1, (129, 5)).astype(np.float32)))
+    launches = tnoise.spectral_nr_gains.launches
+    for blk in range(2):
+        spec = _nr_spec(rng, 16, 5)
+        got = tnoise.spectral_nr_gains(p, spec, st)
+        ref = tnoise.spectral_nr_gains_plain(p, spec, st)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+        assert got[0].shape == (16, 129, 5) and got[2].shape == (8, 129, 5)
+        assert (got[3] is st.xhat2) == (rule == "subtract")
+        st = dataclasses.replace(st, psd_smooth=got[1], min_ring=got[2],
+                                 xhat2=got[3])
+    assert tnoise.spectral_nr_gains.launches == launches
+
+
+def test_spectral_nr_block_on_cpu_goes_through_the_plain_gains(monkeypatch):
+    """spectral_nr_block calls the gains once a block, between the two
+    FFTs; on the CPU that is the plain version."""
+    p = tnoise.SpectralNRParams()
+    calls = []
+    plain = tnoise.spectral_nr_gains_plain
+    monkeypatch.setattr(tnoise, "spectral_nr_gains_plain",
+                        lambda *a: calls.append(a[1].shape) or plain(*a))
+    st = tnoise.init_spectral_nr(p, 3, "cpu")
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (512, 3)).astype(np.float32))
+    for _ in range(2):
+        _, st = tnoise.spectral_nr_block(p, x, st)
+    assert calls == [(4, 129, 3)] * 2
+
+
+@pytest.mark.parametrize("nfr", [1, 2, 16])
+def test_overlap_add_equals_the_frame_loop(nfr):
+    """The two strided slice-adds give the loop over frames' result to
+    the bit."""
+    rng = np.random.default_rng(nfr)
+    frames = torch.as_tensor(rng.standard_normal((nfr, 256, 7))
+                             .astype(np.float32))
+    y = torch.zeros((nfr * 128 + 128, 7))
+    for i in range(nfr):
+        y[i * 128:i * 128 + 256] += frames[i]
+    assert torch.equal(tnoise.overlap_add(frames, 128), y)
+
+
+def test_spectral_nr_and_tracking_wrappers_raise_off_cpu():
+    """A tensor neither on the CPU nor on a card gets an error from
+    kernel 7's and kernel 6's wrappers, not the plain version, and no
+    launch is counted."""
+    from flydog_sdr_gps_tpu_torch.models.gps import tracking
+    meta = dict(device="meta")
+    p = tnoise.SpectralNRParams()
+    st = tnoise.SpectralNRState(
+        in_tail=torch.empty((128, 4), **meta),
+        out_tail=torch.empty((128, 4), **meta),
+        psd_smooth=torch.empty((129, 4), **meta),
+        min_ring=torch.empty((8, 129, 4), **meta),
+        xhat2=torch.empty((129, 4), **meta))
+    before = (tnoise.spectral_nr_gains.launches,
+              tracking.track_epochs.launches)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tnoise.spectral_nr_gains(
+            p, torch.empty((16, 129, 4), dtype=torch.complex64, **meta), st)
+    tp = tracking.TrackParams()
+    ts, tab = tracking.empty_track_state(tp, 2, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tracking.track_epochs(tp, ts, tab, torch.empty((3, tp.epoch), **meta))
+    assert before == (tnoise.spectral_nr_gains.launches,
+                      tracking.track_epochs.launches)
 
 
 def test_lms_chain_matches_reference():

@@ -8,10 +8,13 @@ the card's machine (which has no jax, so without this repo's conftest):
 Tolerances as in the CPU parity tests: the unfused stage 2 within atol
 1e-4 on unit-variance input, the fused one within 2e-4*max|ref|, the
 AGC, SAM and LMS loops within 1e-4*max|ref| (where the plain version is
-finite; its NaN and infinities must be matched exactly); the two stage-2
+finite; its NaN and infinities must be matched exactly); the
+spectral-NR recurrences within 1e-6 of each element; the two stage-2
 branches of ``rx_block`` within 2e-4*max|audio| + 5e-5; the served
 (gathered) block exactly its own ``run_block`` columns.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -448,7 +451,8 @@ def test_gps_track_kernel_matches_plain(card, rows, n_ep):
 
 def test_gps_track_kernel_refuses_arguments_off_the_card(card):
     """A code table or a state field that is not on the card (or not of
-    its dtype) is refused by name before the launch."""
+    its dtype) is refused by name before the launch; a misaligned chunk
+    is copied, not refused."""
     from flydog_sdr_gps_tpu_torch.models.gps import tracking
     tp, st, tab = _gps_bank(3, card)
     raw = torch.as_tensor(_gps_if()[:2], device=card)
@@ -464,6 +468,17 @@ def test_gps_track_kernel_refuses_arguments_off_the_card(card):
     with pytest.raises(ValueError, match="state.carr_freq"):
         tracking.track_epochs(tp, bad, tab, raw)
     assert tracking.track_epochs.launches == launches
+    # a misaligned chunk is copied, not refused
+    flat = torch.as_tensor(_gps_if()[:3], device=card).reshape(-1)
+    s_k, s_p = st.clone(), st.clone()
+    mis = flat[1:1 + 2 * 16368].reshape(2, 16368)
+    assert mis.data_ptr() % 16
+    _, o_k = tracking.track_epochs(tp, s_k, tab, mis)
+    _, o_p = tracking.track_epochs_plain(tp, s_p, tab, mis)
+    assert float((o_k["ip"] - o_p["ip"]).abs().max()) <= \
+        1e-3 * float(o_p["ip"].abs().max())
+    assert tracking.track_epochs.launches == launches + 1
+    assert tracking.max_active_clusters(12) >= 1
 
 
 def test_gps_receiver_runs_its_device_work_on_its_own_stream(card):
@@ -501,3 +516,97 @@ def test_gps_receiver_runs_its_device_work_on_its_own_stream(card):
     assert all(s == rec._stream for s in seen)
     assert set(mgr.channels) == set(ephs)
     assert tracking.track_epochs.launches > launches
+
+
+def _nr_spectra(card, c, nblocks, seed):
+    """One-sided spectra of nblocks chained blocks of audio as
+    spectral_nr_block frames them (tones in noise, a tone a channel),
+    (16, 129, c) complex64 each, in torch.fft's layout."""
+    g = _gen(card, seed)
+    p = noise.SpectralNRParams()
+    n, hop, fft = 2048, p.hop, p.fft_size
+    win = torch.as_tensor(np.hanning(fft + 1)[:fft].astype(np.float32),
+                          device=card)
+    f = torch.empty((1, c), device=card).uniform_(0.05, 1.0, generator=g)
+    out = []
+    for blk in range(nblocks):
+        t = torch.arange(n + hop, device=card, dtype=torch.float32)[:, None]
+        x = 0.3 * (blk % 2) * torch.sin(f * (t + blk * n)) + 0.1 * torch.randn(
+            (n + hop, c), generator=g, device=card)
+        frames = x.unfold(0, fft, hop).transpose(1, 2)
+        out.append(torch.fft.fft(frames * win[None, :, None], dim=1)
+                   [:, :fft // 2 + 1])
+    return out
+
+
+@pytest.mark.parametrize("rule", ["subtract", "mmse"])
+@pytest.mark.parametrize("c", [1, 37, 4096])
+def test_spectral_nr_kernel_matches_plain(card, c, rule):
+    """Kernel 7 against its plain version over three chained blocks,
+    each version carrying its own state: every element of X * g and of
+    every state field within 1e-6 of the plain version's, relative (the
+    plain version's operations, rounded as PyTorch rounds them)."""
+    p = noise.SpectralNRParams(gain_rule=rule)
+    st_k = noise.init_spectral_nr(p, c, card)
+    st_p = noise.init_spectral_nr(p, c, card)
+    launches = noise.spectral_nr_gains.launches
+    for blk, spec in enumerate(_nr_spectra(card, c, 3, c)):
+        got = noise.spectral_nr_gains(p, spec, st_k)
+        ref = noise.spectral_nr_gains_plain(p, spec, st_p)
+        for name, a, b in zip(("spec_g", "psd_smooth", "min_ring", "xhat2"),
+                              got, ref):
+            assert a.shape == b.shape, name
+            off = (a - b).abs() > 1e-6 * b.abs()
+            assert not off.any(), (blk, name, int(off.sum()))
+        st_k = dataclasses.replace(st_k, psd_smooth=got[1], min_ring=got[2],
+                                   xhat2=got[3])
+        st_p = dataclasses.replace(st_p, psd_smooth=ref[1], min_ring=ref[2],
+                                   xhat2=ref[3])
+    assert noise.spectral_nr_gains.launches == launches + 3
+    if rule == "subtract":
+        assert not st_k.xhat2.any()
+
+
+def test_spectral_nr_kernel_refuses_state_off_the_card(card):
+    """A state field off the card, of the wrong dtype or shape, or a
+    spectrum that is not complex64, is refused by name before the
+    launch."""
+    p = noise.SpectralNRParams()
+    spec = _nr_spectra(card, 8, 1, 3)[0]
+    st = noise.init_spectral_nr(p, 8, card)
+    launches = noise.spectral_nr_gains.launches
+    for name, bad in (("psd_smooth", st.psd_smooth.cpu()),
+                      ("min_ring", st.min_ring.double()),
+                      ("xhat2", st.xhat2[:, :4]),
+                      ("min_ring", st.min_ring[1:])):
+        with pytest.raises(ValueError, match=f"state.{name}"):
+            noise.spectral_nr_gains(p, spec, dataclasses.replace(
+                st, **{name: bad}))
+    with pytest.raises(ValueError, match="spec"):
+        noise.spectral_nr_gains(p, spec.to(torch.complex128), st)
+    assert noise.spectral_nr_gains.launches == launches
+
+
+def test_spectral_nr_block_runs_the_kernel_on_card(card, monkeypatch):
+    """spectral_nr_block on the card goes through kernel 7 and no plain
+    loop, and stays within 1e-4 x scale of the same block on the CPU."""
+    p = noise.SpectralNRParams()
+    c = 64
+    rng = np.random.default_rng(4)
+    st_g = noise.init_spectral_nr(p, c, card)
+    st_c = noise.init_spectral_nr(p, c, "cpu")
+    launches = noise.spectral_nr_gains.launches
+    plain = noise.spectral_nr_gains_plain
+    calls = []
+    monkeypatch.setattr(noise, "spectral_nr_gains_plain",
+                        lambda *a: calls.append(a[1].device.type) or plain(*a))
+    for blk in range(3):
+        x = (0.1 * rng.standard_normal((2048, c))).astype(np.float32)
+        y_g, st_g = noise.spectral_nr_block(p, torch.as_tensor(
+            x, device=card), st_g)
+        y_c, st_c = noise.spectral_nr_block(p, torch.as_tensor(x), st_c)
+        y_c = y_c.to(card)
+        assert float((y_g - y_c).abs().max()) <= \
+            1e-4 * float(y_c.abs().max()), blk
+    assert calls == ["cpu"] * 3
+    assert noise.spectral_nr_gains.launches == launches + 3
