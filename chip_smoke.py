@@ -41,6 +41,13 @@ What it does, in order (any failed check raises; exit code != 0):
    1000 Hz, a USB channel 1800 Hz, empty channels stay quiet, S-meters
    plausible, every tap finite; 8 fused blocks and 2 unfused blocks,
    with the launch counters of kernels 1-4 shown to rise in that run.
+3b. The 20.25 kHz family (rx3.wf3's rate: d1=1543, d2=4, fs_out = 125
+   MHz / 6172) through the whole chain at C=4096, audio_block=2048, on
+   the same scene: 2 warm-up and 6 timed blocks; an AM lane on 7.100
+   MHz hears 1000 Hz, a USB lane on 14.1946 MHz (passband 200-9000 Hz)
+   hears the 14.2018 MHz tone at 7200 Hz, every tap finite, kernels 1,
+   3 and 4 launched once a block.  Then ``RxParams.from_config(rx3.wf3)``
+   at its 3 channels for 4 blocks, the same tones.
 4. The serving path: a ``StreamEngine`` at the same size fed by the same
    scene plus one FSK emitter; 32 subscribed channels spread over the
    band (AM, USB, one SAM, one with the LMS notch and denoiser on, one
@@ -83,6 +90,13 @@ What it does, in order (any failed check raises; exit code != 0):
    a block (block start to block start), the realtime factor with the
    server in the loop, the host time a block in the encode and the
    fan-out, and what the event loop loses while the blocks are enqueued.
+   Then the same server with ``autorun=["wspr:14095.6", "FT8:14074"]``
+   beside the listeners for 88 blocks (an FT8 capture completes in the
+   80th), and again without autorun for 88 blocks: the units claim idle
+   channels tuned in USB, each unit's capture grows by a block every
+   block (or completes), ``/status`` says ``autorun=2``, every gate above
+   holds; prints both factors, the autorun host ms a block and the
+   block in which the FT8 capture completed beside its neighbours.
 
 6a. GPS alone at full width: the ``run_server --gps`` sky (the GPS
    satellites above 15 degrees of 8 asked for, the decoy PRNs 3, 7 and
@@ -101,6 +115,15 @@ What it does, in order (any failed check raises; exit code != 0):
    beside phase 5's, GPS chunks processed, rows tracking, the ADMIN
    socket's ``gps`` reply.  Fails under a factor of 1.0 or with no
    satellite tracked.
+7. The decoders' front ends on the card: a 114 s WSPR transmission
+   (K1ABC FN42 37, tone 0 at 1520 Hz), a 13.5 s FT8 and a 6.5 s FT4
+   one (CQ K1ABC FN42), synthesized on the host from the copied encoders
+   in noise at the SNRs of the decoders' own tests, each streamed
+   through (2048, 4096) device taps to its extension, which must decode
+   it; the peak device memory of each capture (under 1 GB: no tap kept);
+   the recorded off-air WSPR capture (``tests/data/wspr_offair_375.npz``)
+   through the host path must give ZL3DMH RE66 37; the FFT extension's
+   row peaks at a test tone's bin; each front end timed alone.
 
 Kernel 7's launch count is read around phases 3 to 6b and must be one a
 block in 4, 5 and 6b, where a lane has spectral NR on.  ``--profile``
@@ -154,6 +177,9 @@ KERNEL_SOURCES = {
     "spectral_nr": ("csrc/spectral_nr.cu",
                     "flydog_sdr_gps_tpu/ops/noise.py:150 and :172"),
 }
+# phase 5 with autorun: an FT8 capture (13.5 s) completes in the 80th block
+# of 170.656 ms; a few more show the blocks after it
+AUTORUN_BLOCKS = 88
 # the serving scene adds one WSPR-like 4-FSK emitter (8192 audio samples a
 # symbol = 4 blocks, 162 symbols, then idle to 200)
 FSK_TONE = (10.1387e6, 0.10)
@@ -734,6 +760,93 @@ def phase_slice(torch, device, channels: int, block: int,
                 profile=prof_table)
 
 
+def phase_slice_20k(torch, device, channels: int, block: int,
+                    warmup: int = 2, timed: int = 6,
+                    small_blocks: int = 4) -> dict:
+    """Phase 3b: the 20.25 kHz family (rx3.wf3's rate, d2=4) through the
+    whole chain at full width, then ``RxParams.from_config(rx3.wf3)`` at
+    its own 3 channels.  An AM lane on 7.100 MHz hears 1000 Hz; a USB
+    lane on 14.1946 MHz (passband 200-9000 Hz) hears the 14.2018 MHz
+    tone at 7200 Hz, which the 12 kHz family cannot pass."""
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.numerology import ADC_CLOCK_NOM, CONFIGS
+    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels, noise
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    counters = {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
+                "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
+                "spectral_nr": noise.spectral_nr_gains}
+    cfg = CONFIGS["rx3.wf3"]
+
+    def engine(params):
+        src = DeviceSceneSource(tones=SCENE, noise_rms=3e-4,
+                                block=params.ddc.adc_block, device=device)
+        eng = StreamEngine(params, src, device=device)
+        eng.set_channel(0, freq_hz=7.100e6, mode=demod.MODE_AM, in_use=True)
+        eng.set_channel(1, freq_hz=14.1946e6, mode=demod.MODE_USB,
+                        in_use=True, passband=(200.0, 9000.0))
+        return eng
+
+    def heard(rows, fs, what):
+        audio = np.concatenate(rows)[block:]      # past the first block
+        f_am = dominant_hz(audio[:, 0], fs)
+        f_usb = dominant_hz(audio[:, 1], fs)
+        log(f"  {what}: AM 7.100 MHz hears {f_am:.1f} Hz, USB 14.1946 MHz "
+            f"hears {f_usb:.1f} Hz (the 14.2018 MHz tone at +7200 Hz)")
+        res = fs / len(audio)
+        check(abs(f_am - 1000.0) <= 2 * res + 5, f"{what}: AM hears {f_am}")
+        check(abs(f_usb - 7200.0) <= 40.0, f"{what}: USB hears {f_usb}")
+        return f_am, f_usb
+
+    params = rx.RxParams(num_channels=channels, snd_rate=cfg.snd_rate,
+                         audio_block=block)
+    check(abs(params.fs_out - ADC_CLOCK_NOM / 6172) < 1e-9,
+          f"fs_out {params.fs_out} is not 125 MHz / 6172")
+    check((params.ddc.d1, params.ddc.d2) == (1543, 4),
+          f"decimation {params.ddc.decims}")
+    eng = engine(params)
+    for fn in counters.values():
+        fn.launches = 0                     # the main path's run starts
+    rows, ms = [], []
+    for i in range(warmup + timed):
+        t0 = time.perf_counter()
+        taps = eng.run_block()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        for name in ("audio", "audio2", "iq_pre_fir", "iq_post_agc",
+                     "smeter_dbm"):
+            check(bool(torch.isfinite(getattr(taps, name)).all()),
+                  f"phase 3b: non-finite {name}")
+        rows.append(taps.audio[:, :2].cpu().numpy())
+    launches = {k: fn.launches for k, fn in counters.items()}
+    nblk = warmup + timed                   # the main path's run ends
+    log(f"  launches in the run: {launches} in {nblk} blocks")
+    for k in ("stage2_rot", "agc_envelope", "sam_pll"):
+        check(launches[k] == nblk, f"phase 3b: kernel {k} launched "
+              f"{launches[k]} times in {nblk} blocks")
+    check(launches["stage2"] == 0 and launches["spectral_nr"] == 0,
+          "phase 3b: the unfused stage 2 or kernel 7 ran")
+    fs = params.fs_out
+    f_am, f_usb = heard(rows, fs, f"C={channels}")
+    block_ms = params.ddc.adc_block / params.adc_clock * 1e3
+    steady = ms[warmup:]
+    del eng, taps
+    # the firmware configuration itself, at its 3 channels
+    small = rx.RxParams.from_config(cfg, audio_block=block)
+    check(small.num_channels == 3 and small.fs_out == fs,
+          "from_config(rx3.wf3)")
+    eng = engine(small)
+    rows_small = [eng.run_block().audio[:, :2].cpu().numpy()
+                  for _ in range(small_blocks)]
+    small_heard = heard(rows_small, fs, "from_config(rx3.wf3), C=3")
+    return dict(launches=launches, fs_out=fs, adc_block=params.ddc.adc_block,
+                am_hz=f_am, usb_hz=f_usb, small_heard_hz=small_heard,
+                ms_blocks=ms, ms_median=statistics.median(steady),
+                ms_min=min(steady), ms_max=max(steady),
+                realtime_factor=len(steady) * block_ms / sum(steady),
+                block_period_ms=block_ms)
+
+
 def profile_block(torch, eng) -> str:
     """Where one block's time goes: the source, the DDC and the audio
     back half each timed alone (3 runs), then one block under
@@ -1209,8 +1322,69 @@ def server_script(channels: int) -> list[tuple[str, list[str]]]:
     return lanes
 
 
+def autorun_checks(info: dict, unit_samples: list, block: int, starts,
+                   script_channels: int, have_status: bool) -> dict:
+    """Phase 5 with autorun: each unit on an idle channel, tuned and in
+    USB; each unit's capture grew by a block every block (or completed);
+    ``/status`` reports the units.  Returns what the run measured of the
+    autorun work: the host ms a block, and the block whose capture
+    completed beside its neighbours."""
+    from flydog_sdr_gps_tpu_torch.ops import demod
+    units = info["autorun"]
+    for u in units:
+        check(u["rx_chan"] is not None and u["rx_chan"] >= script_channels,
+              f"autorun unit {u['ext']} is not on an idle channel: {u}")
+        check(abs(u["ctl_hz"] - u["freq_khz"] * 1e3) < 1.0
+              and u["mode"] == demod.MODE_USB,
+              f"autorun unit {u['ext']} is not tuned in USB: {u}")
+    check(len({u["rx_chan"] for u in units}) == len(units),
+          "two autorun units share a channel")
+    check(len(unit_samples) >= info["blocks"] - 3,
+          f"autorun fed {len(unit_samples)} of {info['blocks']} blocks")
+    completed = []
+    for k, u in enumerate(units):
+        seq = [s[k] for s in unit_samples]
+        check(seq[0] == block, f"{u['ext']}: first capture count {seq[0]}")
+        for i in range(1, len(seq)):
+            grew = seq[i] == seq[i - 1] + block
+            done = seq[i] == 0 and seq[i - 1] + block >= u["capture"]
+            check(grew or done, f"{u['ext']}: capture {seq[i - 1]} -> "
+                  f"{seq[i]} at block {i}")
+            if done:
+                completed.append((u["ext"], i))
+    if have_status:
+        check("autorun=2" in info["status"] and "spots=" in info["status"],
+              f"/status: {info['status']!r}")
+    # the autorun host work a block, and the block a capture completed in:
+    # the fan-out of the n-th block runs in the block loop's n-th
+    # iteration (0-based), whose length is starts[n]
+    ar = {n: s * 1e3 for n, s in info["autorun_s"]}
+    ms = [ar[n] for n in sorted(ar)]
+    around = {}
+    for ext, i in completed:
+        n = sorted(ar)[i]
+        around[f"{ext}@{n}"] = dict(
+            autorun_ms=ar[n], block_ms={m: float(starts[m]) for m in
+                                        range(n - 2, n + 3)
+                                        if 0 <= m < len(starts)})
+    out = dict(autorun_units=units, autorun_completed=completed,
+               autorun_ms_median=float(np.median(ms)),
+               autorun_ms_max=float(max(ms)), autorun_completion=around,
+               spots=info["spots"])
+    log(f"  autorun: units {[(u['ext'], u['rx_chan'], u['freq_khz']) for u in units]}"
+        f", capture counts grew by {block} every block; host ms a block: "
+        f"median {out['autorun_ms_median']:.3f}, max "
+        f"{out['autorun_ms_max']:.3f}; captures completed (unit, block): "
+        f"{completed}; spots {[s['text'] for s in info['spots']]}")
+    for k, v in around.items():
+        log(f"  the block a capture completed in ({k}): autorun host "
+            f"{v['autorun_ms']:.3f} ms; block start to block start, ms, of "
+            f"it and its neighbours {v['block_ms']}")
+    return out
+
+
 def phase_server(torch, device, channels: int, block: int,
-                 nblocks: int = 14, gps=None) -> dict:
+                 nblocks: int = 14, gps=None, autorun=None) -> dict:
     import asyncio
     from flydog_sdr_gps_tpu_torch import run_server
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -1246,7 +1420,18 @@ def phase_server(torch, device, channels: int, block: int,
     del twin
 
     eng = engine()
-    server = KiwiServer(eng, realtime=False, port=0, gps=gps)
+    server = KiwiServer(eng, realtime=False, port=0, gps=gps,
+                        autorun=autorun)
+    # each autorun unit's capture count after every block it was fed
+    unit_samples: list[list[int]] = []
+    if autorun:
+        feed = server.autorun.process_block
+
+        def process_block(taps):
+            feed(taps)
+            unit_samples.append([u.ext._samples if u.ext is not None
+                                 else -1 for u in server.autorun.units])
+        server.autorun.process_block = process_block
     block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
     hz_per_start = UI_SRATE_30M / (WF_OUT_PX << MAX_ZOOM)
 
@@ -1349,6 +1534,16 @@ def phase_server(torch, device, channels: int, block: int,
             info["admin_gps"] = await admin_gps_reply(server)
             info["gps_status"] = gps.status()
         info["blocks"] = eng.seq
+        if autorun:
+            info["autorun"] = [
+                dict(ext=u.ext_name, rx_chan=u.rx_chan, freq_khz=u.freq_khz,
+                     ctl_hz=eng.ctl[u.rx_chan].freq_hz,
+                     mode=eng.ctl[u.rx_chan].mode,
+                     capture=u.ext.capture_samples,
+                     results=len(getattr(u.ext, "results", [])))
+                for u in server.autorun.units]
+            info["autorun_s"] = list(server.autorun_s)
+            info["spots"] = list(server.autorun.spots)
         info["starts"] = list(server.block_started)
         info["drops"] = sum(c.send_drops for c in server.conns.values())
         info["lags"] = lags
@@ -1462,6 +1657,10 @@ def phase_server(torch, device, channels: int, block: int,
     steady = starts[2:]                         # past the first blocks
     lags = np.asarray(info["lags"]) * 1e3
     gps_out = {}
+    if autorun:
+        gps_out = autorun_checks(info, unit_samples, block, starts,
+                                 script_channels=len(script),
+                                 have_status=info["real"] is not None)
     if gps is not None:
         st = info["gps_status"]
         chunks = gps.mgr.ticks // gps.chunk
@@ -1749,6 +1948,193 @@ async def admin_gps_reply(server) -> dict | None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the decoders' front ends on the card
+# ---------------------------------------------------------------------------
+
+def fsk_audio(tones, f0: float, spacing: float, sps: int, n: int,
+              fs: float = 12000.0) -> np.ndarray:
+    """Continuous-phase FSK audio (float64): symbol i is a sine at ``f0 +
+    tones[i] * spacing`` for ``sps`` samples; zeros after the last
+    symbol.  The decoders' own tests synthesize their signals so."""
+    sig = np.zeros(n)
+    phase = 0.0
+    for i, tone in enumerate(tones):
+        a, b = i * sps, min((i + 1) * sps, n)
+        if a >= n:
+            break
+        f = f0 + tone * spacing
+        t = np.arange(b - a)
+        sig[a:b] = np.sin(phase + 2 * np.pi * f * t / fs)
+        phase = (phase + 2 * np.pi * f * (b - a) / fs) % (2 * np.pi)
+    return sig
+
+
+class DecoderEngine:
+    """What the decoder extensions ask of an engine, as the reference's
+    extension tests stub it: an output rate and no source.  It names no
+    device, so each extension runs its front end where its taps are."""
+    class params:
+        fs_out = 12000.0
+
+    source = None
+
+
+def feed_decoder(torch, device, name: str, audio: np.ndarray,
+                 channels: int, block: int, ch: int = 7) -> dict:
+    """Stream ``audio`` through the extension ``name`` on channel ``ch``
+    of device taps (block, channels) on the card, a new tap tensor a
+    block as the engine makes them; returns its messages, wall ms of the
+    block that completed the capture and of the others, and the peak
+    device memory of the run."""
+    from flydog_sdr_gps_tpu_torch import extensions as ext_mod
+    from flydog_sdr_gps_tpu_torch.models.rx_channel import RxTaps
+    e = ext_mod.ext_create(name, DecoderEngine(), ch)
+    e.start()
+    dev_audio = torch.from_numpy(audio).to(device)
+    iq = torch.zeros((1, 1), dtype=torch.complex64, device=device)  # unread
+    smeter = torch.zeros(channels, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    msgs, ms, on_card = [], [], True
+    for i in range(0, len(audio), block):
+        tap = torch.zeros((block, channels), device=device)
+        chunk = dev_audio[i:i + block]
+        tap[:len(chunk), ch] = chunk
+        taps = RxTaps(audio=tap, audio2=tap, iq_pre_fir=iq, iq_post_agc=iq,
+                      smeter_dbm=smeter)
+        buf = e._capture._buf
+        on_card &= buf is None or buf.is_cuda
+        t0 = time.perf_counter()
+        out = e.process_block(taps)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del taps, tap
+        msgs += out
+        if out:
+            break
+    max_allocated = torch.cuda.max_memory_allocated()
+    peak = max_allocated - base
+    check(on_card, f"{name}: the capture is not on the card")
+    check(bool(msgs), f"{name}: no capture completed")
+    return dict(ext=e, msgs=msgs, blocks=len(ms), completing_ms=ms[-1],
+                other_ms_median=float(np.median(ms[:-1])),
+                peak_mem_gb=peak / 1e9, max_allocated_gb=max_allocated / 1e9)
+
+
+def phase_decoders(torch, device, timer, channels: int, block: int,
+                   card: str) -> dict:
+    """Phase 7: WSPR, FT8 and FT4 transmissions synthesized on the host
+    from the copied encoders, in noise at the SNRs of the decoders' own
+    tests, fed through device taps on the card to their extensions: each
+    must decode its message.  The recorded off-air WSPR capture through
+    the host path.  The FFT extension's row on a test tone.  Each front
+    end's device work timed alone."""
+    from flydog_sdr_gps_tpu_torch import extensions as ext_mod
+    from flydog_sdr_gps_tpu_torch.extensions import (audio_fft, ft4, ft8,
+                                                      ft8_decode, wspr,
+                                                      wspr_decode)
+    from flydog_sdr_gps_tpu_torch.models.rx_channel import RxTaps
+    rng = np.random.default_rng(2026)
+    out = {}
+    cq = ft8_decode.pack_payload(ft8_decode.Ft8Message("CQ", "K1ABC", "FN42"))
+    cases = {
+        # tone 0 at 1500 + 20 Hz, test_wspr_decode.py's SNR
+        "wspr": (wspr_decode.encode_to_tones(
+            wspr_decode.WsprMessage("K1ABC", "FN42", 37)),
+            wspr.DIAL_OFFSET + 20.0, wspr.TONE_SPACING,
+            wspr.SPS * wspr.DECIM, int(wspr.CAPTURE_S * 12000), 0.25, 0.25,
+            "K1ABC FN42 37"),
+        # test_ft8_decode.py's and test_ft4.py's messages and SNRs
+        "FT8": (ft8_decode.codeword_to_tones(ft8_decode.ldpc_encode(
+            ft8_decode.add_crc(cq))), 1200.0, ft8.BAUD, ft8.SPS,
+            int(ft8.Ft8Ext.CAPTURE_S * 12000), 0.3, 0.2, "CQ K1ABC FN42"),
+        "FT4": (ft4.encode_tones(cq), 1500.0, ft4.BAUD, ft4.SPS,
+                int(ft4.Ft4Ext.CAPTURE_S * 12000), 0.3, 0.2,
+                "CQ K1ABC FN42"),
+    }
+    captures = {}
+    for name, (tones, f0, spacing, sps, n, amp, noise, want) in cases.items():
+        audio = (amp * fsk_audio(tones, f0, spacing, sps, n)
+                 + noise * rng.standard_normal(n)).astype(np.float32)
+        captures[name] = audio
+        r = feed_decoder(torch, device, name, audio, channels, block)
+        dec = [p.decode() for t, p in r["msgs"] if t.endswith("_decode")]
+        log(f"  {name}: {r['blocks']} blocks of ({block}, {channels}) device "
+            f"taps; decoded {dec}; the completing block {r['completing_ms']:.3f}"
+            f" ms (front end + host decode), the others median "
+            f"{r['other_ms_median']:.3f} ms; peak device memory of the "
+            f"capture {r['peak_mem_gb']:.4f} GB over what was allocated "
+            f"before it (torch.cuda.max_memory_allocated() "
+            f"{r['max_allocated_gb']:.4f} GB)  [{card}]")
+        check(any(d.startswith(want) for d in dec),
+              f"{name} did not decode {want!r}: {r['msgs']}")
+        # a capture that kept views of the taps would hold every block's
+        # (block, channels) tensor: ~22 GB for WSPR at C=4096
+        check(r["peak_mem_gb"] < 1.0, f"{name}: the capture held "
+              f"{r['peak_mem_gb']} GB of the card")
+        out[name] = {k: v for k, v in r.items() if k not in ("ext", "msgs")}
+        out[name]["decoded"] = dec
+
+    # the recorded off-air capture through the host path (copied code)
+    z = np.load(HERE / "tests" / "data" / "wspr_offair_375.npz")["iq"] \
+        .astype(np.complex128)
+    nsym = len(z) // wspr.SPS
+    power = np.abs(np.fft.fftshift(np.fft.fft(
+        z[:nsym * wspr.SPS].reshape(nsym, wspr.SPS), axis=1),
+        axes=1)).astype(np.float32) ** 2
+    spots = []
+    for c in wspr.sync_correlate(power, max_dt_sym=nsym - wspr.NSYM)[:5]:
+        r = wspr.refine_candidate(z, c)
+        msg = None if r is None else wspr_decode.decode_soft_symbols(r["soft"])
+        if msg is not None:
+            spots.append((msg.callsign, msg.grid, msg.dbm, r["freq"],
+                          r["sync"]))
+    log(f"  off-air WSPR capture (tests/data/wspr_offair_375.npz): {spots}")
+    hit = [s for s in spots if s[:3] == ("ZL3DMH", "RE66", 37)]
+    check(bool(hit) and abs(hit[0][3] - 1535.5) < 2.0 and hit[0][4] > 0.5,
+          f"the off-air capture did not give ZL3DMH RE66 37: {spots}")
+    out["offair"] = [list(s) for s in spots]
+
+    # the FFT extension's row peaks at a test tone's bin
+    f_tone = 1750.0
+    t = np.arange(4 * block) / 12000.0
+    tone = torch.from_numpy((0.4 * np.exp(2j * np.pi * f_tone * t))
+                            .astype(np.complex64)).to(device)
+    fe = ext_mod.ext_create("FFT", DecoderEngine(), 7)
+    fe.start()
+    rows = []
+    for i in range(4):
+        iq = torch.zeros((block, channels), dtype=torch.complex64,
+                         device=device)
+        iq[:, 7] = tone[i * block:(i + 1) * block]
+        rows += fe.process_block(RxTaps(audio=iq.real, audio2=iq.real,
+                                        iq_pre_fir=iq, iq_post_agc=iq,
+                                        smeter_dbm=torch.zeros(channels)))
+    row = np.frombuffer(rows[-1][1], "<f4")
+    want_bin = audio_fft.FFT_N // 2 + round(f_tone / (12000.0 / audio_fft.FFT_N))
+    log(f"  FFT: {len(rows)} rows; the row peaks at bin {int(np.argmax(row))} "
+        f"(the {f_tone:.0f} Hz tone's bin {want_bin})")
+    check(abs(int(np.argmax(row)) - want_bin) <= 1, "FFT row peak")
+
+    # each front end's device work alone, on the captures above
+    x_w = torch.from_numpy(captures["wspr"]).to(device)
+    x_8 = torch.from_numpy(captures["FT8"]).to(device)
+    x_4 = torch.from_numpy(captures["FT4"]).to(device)
+    z_f = tone[:audio_fft.FFT_N].clone()
+    times = {"wspr.frontend": timer.both(lambda: wspr.frontend(x_w)),
+             "ft8.spectrogram": timer.both(lambda: ft8.spectrogram(x_8)),
+             "ft4.spectrogram": timer.both(lambda: ft4.spectrogram(x_4)),
+             "audio_fft.spectrum": timer.both(
+                 lambda: audio_fft.spectrum(z_f))}
+    for k, v in times.items():
+        log(f"  {k}: {v['ms']:.4f} ms ({v['ms_host_paced']:.4f} host-paced)"
+            f"  [{card}]")
+    out["frontend_ms"] = times
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
@@ -1836,6 +2222,16 @@ def main(argv: list[str]) -> int:
         f"unfused: {[round(v, 2) for v in sl['ms_unfused_blocks']]}")
     if sl["profile"]:
         log(sl["profile"])
+    log("phase 3b: the 20.25 kHz chain (rx3.wf3's rate, d2=4), C=4096, "
+        "audio_block=2048")
+    s3b = phase_slice_20k(torch, device, channels=4096, block=2048)
+    log(f"  realtime factor {s3b['realtime_factor']} (signal time / wall "
+        f"time of 6 blocks after 2 warm-up blocks, "
+        f"{s3b['block_period_ms']} ms per block period, adc_block "
+        f"{s3b['adc_block']}); per block median {s3b['ms_median']} ms, min "
+        f"{s3b['ms_min']}, max {s3b['ms_max']}; fs_out {s3b['fs_out']} Hz  "
+        f"[{card}]")
+    log(f"  per-block ms: {[round(v, 2) for v in s3b['ms_blocks']]}")
     log("phase 4: the serving path, C=4096, audio_block=2048, buckets 32 "
         "and 64, four waterfall slots")
     sv = phase_serve(torch, device, timer, channels=4096, block=2048,
@@ -1876,6 +2272,24 @@ def main(argv: list[str]) -> int:
         f"{sr['loop_lag_ms']['max']:.3f} ({sr['loop_lag_ms']['n']} sleeps); "
         f"aiohttp present: {sr['aiohttp']}  [{card}]")
     check(sr["realtime_factor"] >= 1.0, "the server does not hold real time")
+    autorun = ["wspr:14095.6", "FT8:14074"]
+    log(f"phase 5 with autorun: the same server with autorun={autorun} "
+        f"beside the 32 listeners, {AUTORUN_BLOCKS} blocks (an FT8 capture "
+        "completes in its 80th), then the same run without autorun")
+    sra = phase_server(torch, device, channels=4096, block=2048,
+                       nblocks=AUTORUN_BLOCKS, autorun=autorun)
+    srn = phase_server(torch, device, channels=4096, block=2048,
+                       nblocks=AUTORUN_BLOCKS)
+    log(f"  with autorun: per block median {sra['ms_median']} ms, min "
+        f"{sra['ms_min']}, max {sra['ms_max']}; realtime factor "
+        f"{sra['realtime_factor']}; without it in the same call: median "
+        f"{srn['ms_median']} ms, factor {srn['realtime_factor']} (phase 5, "
+        f"14 blocks: {sr['realtime_factor']}); fan-out "
+        f"{sra['fanout_ms_per_block']:.3f} / {srn['fanout_ms_per_block']:.3f}"
+        f" ms a block  [{card}]")
+    log(f"  per-block ms with autorun: {[round(v, 2) for v in sra['ms_blocks']]}")
+    check(sra["realtime_factor"] >= 1.0,
+          "the server with autorun does not hold real time")
     log("phase 6a: GPS alone, cold start, 12 rows, 0.4 s chunks of the "
         "run_server --gps sky on the card")
     g = phase_gps(torch, device)
@@ -1905,8 +2319,16 @@ def main(argv: list[str]) -> int:
     log(f"  per-block ms: {[round(v, 2) for v in srg['ms_blocks']]}")
     check(srg["realtime_factor"] >= 1.0,
           "the server with GPS does not hold real time")
+    log("phase 7: the decoders' front ends on the card (WSPR, FT8, FT4 "
+        "through device taps at C=4096, the off-air WSPR capture, the FFT "
+        "row)")
+    dec = phase_decoders(torch, device, timer, channels=4096, block=2048,
+                         card=card)
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
-                   server=sr, gps=g, server_gps=srg,
+                   server=sr, gps=g, server_gps=srg, slice_20k=s3b,
+                   server_autorun={k: v for k, v in sra.items()
+                                   if k != "spots"},
+                   server_control=srn, decoders=dec,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -1916,8 +2338,10 @@ def main(argv: list[str]) -> int:
 
     log(card)
     # each path's counts were set to 0 just before it and read just after
-    paths = {"slice": sl["launches"], "serve": sv["launches"],
-             "server": sr["launches"],
+    paths = {"slice": sl["launches"], "slice_20k": s3b["launches"],
+             "serve": sv["launches"], "server": sr["launches"],
+             "server_autorun": sra["launches"],
+             "server_control": srn["launches"],
              "gps": {"gps_track": g["launches"]},
              "server_gps": srg["launches"]}
 

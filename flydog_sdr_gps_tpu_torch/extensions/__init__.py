@@ -10,10 +10,13 @@ talks to them over the EXT WebSocket stream.
 Design: the block pipeline already returns every tap for ALL channels
 (`models.rx_channel.RxTaps`), so an extension is just a consumer
 object: ``process_block(taps) -> list of (tag, payload)`` messages for
-its client.  The registry lists what the port holds so far: the two
-host-only extensions that consume the server's ``HostTaps``.  A client
-that asks for any other name gets what it gets for a name that was
-never registered: no reply.
+its client.  Extensions take either kind of taps: the engine's
+``RxTaps`` (device tensors) or the server's ``HostTaps`` (host rows of
+the subscribed channels).  The decoders with device work (FFT, wspr,
+FT8, FT4) run their front ends in torch on the engine's device.  The
+registry lists what the port holds so far, in the reference's order; a
+client that asks for any other name gets what it gets for a name that
+was never registered: no reply.
 """
 
 from __future__ import annotations
@@ -67,3 +70,8 @@ def ext_create(name: str, engine, rx_chan: int) -> Extension:
 # built-in extensions (import order = registration order)
 from . import s_meter        # noqa: E402,F401
 from . import iq_display     # noqa: E402,F401
+from . import audio_fft      # noqa: E402,F401
+from . import cw_decoder     # noqa: E402,F401
+from . import wspr           # noqa: E402,F401
+from . import ft8            # noqa: E402,F401
+from . import ft4            # noqa: E402,F401

@@ -98,6 +98,13 @@ class RxParams:
     def fs_out(self) -> float:
         return self.ddc.fs_out
 
+    @classmethod
+    def from_config(cls, config, **kwargs) -> "RxParams":
+        """Build from a firmware-style RxConfig (rx4/rx8/rx3/rx14,
+        `numerology.CONFIGS` — reference `main.cpp:346-395`)."""
+        return cls(num_channels=config.rx_chans,
+                   snd_rate=config.snd_rate, **kwargs)
+
 
 @dataclasses.dataclass
 class RxTuning:

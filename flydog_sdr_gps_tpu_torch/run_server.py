@@ -13,8 +13,11 @@ on the CPU.  ``--gps`` adds the GPS/Galileo receiver on a synthetic sky
 oscillator off by ``--gps-ppm``): on the card the sky is synthesized
 there in 0.4 s chunks, with ``--cpu`` on the host in 0.1 s chunks, paced
 at real time; its fixes discipline the clock that tunes every channel.
-``--mesh`` and ``--autorun`` are the flags of parts that are not ported
-yet and end with an error that says so.
+``--autorun wspr:7038.6 --autorun FT8:14074`` (repeatable) runs
+background decoders on idle channels, which yield to listeners; a spec
+naming an extension the port does not hold ends with an error.
+``--mesh`` is the flag of a part that is not ported yet and ends with
+an error that says so.
 """
 from __future__ import annotations
 
@@ -52,7 +55,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="max rx channels one IP may hold (0=unlimited)")
     p.add_argument("--autorun", action="append", default=[],
                    help="background decoder on an idle channel, e.g. "
-                        "--autorun wspr:7038.6 (not ported yet)")
+                        "--autorun wspr:7038.6 --autorun FT8:14074 "
+                        "(repeatable)")
     p.add_argument("--mesh", default=None,
                    help="run the engine over several devices, e.g. "
                         "--mesh time=2,chan=4 (not ported yet)")
@@ -77,8 +81,12 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--mesh waits for the port of the multi-device engine "
                 "(runtime/sharded_stream.py)")
     if args.autorun:
-        p.error("--autorun waits for the port of the extensions and "
-                "server/autorun.py")
+        from .server.autorun import parse_spec
+        for spec in args.autorun:
+            try:
+                parse_spec(spec)
+            except ValueError as e:
+                p.error(str(e))
     return args
 
 
@@ -157,7 +165,8 @@ def build(args):
             cfg.set("admin_password", args.admin_password)
 
     server = KiwiServer(eng, cfg=cfg, port=args.port,
-                        realtime=args.realtime, gps=gps, dx_path=args.dx)
+                        realtime=args.realtime, gps=gps, dx_path=args.dx,
+                        autorun=args.autorun or None)
     if args.inactivity_min:
         server.inactivity_min = args.inactivity_min
     if args.tlimit_min:

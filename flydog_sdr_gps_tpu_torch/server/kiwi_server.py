@@ -28,11 +28,13 @@ so :meth:`KiwiServer.open_stream` takes any object of that surface and
 :meth:`KiwiServer.start` builds the aiohttp application and needs the
 package.
 
-Not here yet, each raising where it is asked for: background decoders
-(``autorun=``) and the engine split over several devices (the
-reference's non-fused serving branch).  The GPS subsystem (``gps=``, a
-``runtime.GpsReceiver``) runs beside the block loop as the reference's
-does, started by :meth:`KiwiServer.start_tasks`.
+Not here yet, raising where it is asked for: the engine split over
+several devices (the reference's non-fused serving branch).  The GPS
+subsystem (``gps=``, a ``runtime.GpsReceiver``) runs beside the block
+loop as the reference's does, started by :meth:`KiwiServer.start_tasks`.
+Background decoders (``autorun=``, ``server.autorun``) claim idle
+channels, yield them to listeners, and are fed each block's
+``HostTaps`` after the fan-out, as the reference's are.
 """
 
 from __future__ import annotations
@@ -311,7 +313,9 @@ class Connection:
             # (`rx/rx_sound_cmd.cpp:464-531`; algo 0=off 1=WDSP 2=ORIG
             # 3=SPECTRAL, type 0=denoise 1=autonotch,
             # `rx/rx_noise.h:9-10`).  WDSP/ORIG map to the LMS chain;
-            # SPECTRAL's denoiser is the MMSE-LSA spectral stage.
+            # SPECTRAL's denoiser is the spectral NR stage with
+            # RxParams.nr's gain rule, "subtract" (power spectral
+            # subtraction, `models/rx_channel.py`), not MMSE-LSA.
             if "algo" in p:
                 self.nr_algo = int(p["algo"])
                 if ch is not None:      # algo change clears enables
@@ -750,10 +754,6 @@ class KiwiServer:
                  realtime: bool = False, wf_enabled: bool = True,
                  wf_chans: int = 4, gps=None, dx_path: str | None = None,
                  autorun: list[str] | None = None):
-        if autorun:
-            raise NotImplementedError(
-                "autorun= waits for the port of the extensions and "
-                "server/autorun.py (the decoders' slice)")
         if not hasattr(engine, "run_block_gather"):
             raise NotImplementedError(
                 "an engine without run_block_gather (the reference's "
@@ -810,6 +810,10 @@ class KiwiServer:
         # fetch uses two host buffers in turns, so nothing deeper is
         # safe: the block loop refuses it.
         self.pipeline_depth = 2
+        # background decoders on idle channels (rx_util.cpp arun_*)
+        from . import autorun as autorun_mod
+        self.autorun = (autorun_mod.AutorunManager(self, autorun)
+                        if autorun else None)
         # GPS subsystem (a runtime.gps_service.GpsReceiver): searches,
         # tracks and solves in the background; clock corrections retune
         # every DDC NCO (`rx/rx_sound.cpp:334-344`)
@@ -827,6 +831,10 @@ class KiwiServer:
         self.encode_s = 0.0
         self.fanout_s = 0.0
         self.blocks_fanned = 0
+        # (block fanned, host seconds) of the autorun units' work of
+        # each of the last blocks (a completed capture's front end and
+        # decode land on one block)
+        self.autorun_s: collections.deque = collections.deque(maxlen=512)
         self.port = port
         self.ui_srate = ui_srate
         self.wf_fps = wf_fps
@@ -930,14 +938,21 @@ class KiwiServer:
 
     # -- channel management (rx_enable / rx_chan_free_count analogue) ---
     def claim_channel(self, conn: Connection) -> int | None:
-        used = {c.rx_chan for c in self.conns.values()
-                if c.rx_chan is not None}
-        for ch in range(self.engine.params.num_channels):
-            if ch not in used:
-                conn.rx_chan = ch
-                self.engine.ctl[ch].in_use = True
-                self._chan_codec.pop(ch, None)   # fresh stream
-                return ch
+        for _ in range(2):
+            used = {c.rx_chan for c in self.conns.values()
+                    if c.rx_chan is not None}
+            if self.autorun is not None:
+                used |= self.autorun.channels
+            for ch in range(self.engine.params.num_channels):
+                if ch not in used:
+                    conn.rx_chan = ch
+                    self.engine.ctl[ch].in_use = True
+                    self._chan_codec.pop(ch, None)   # fresh stream
+                    return ch
+            # all channels busy: autorun decoders yield to real users
+            # (`rx/rx_util.cpp` arun preemption)
+            if self.autorun is None or not self.autorun.release_one():
+                break
         return None
 
     def release(self, conn: Connection) -> None:
@@ -1121,8 +1136,9 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             "snr": "{0},{0}".format(
                 int(self.snr_history[-1]["snr"])
                 if self.snr_history else 0),
-            "autorun": 0,
-            "spots": 0,
+            "autorun": (len(self.autorun.channels)
+                        if self.autorun else 0),
+            "spots": (len(self.autorun.spots) if self.autorun else 0),
             "bands": int(self.ui_srate / 1e3),
             "freq_offset": self.freq_offset_khz,
             "sw_version": f"KiwiSDR_TPU_v{__version__}",
@@ -1698,9 +1714,14 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             # ~32 MB full audio at C=4096), the S-meter and the ADC
             # peak all come back in one packed tensor
             # (StreamEngine.run_block_gather).
+            if self.autorun is not None:
+                self.autorun.tick()     # claim before the gather so a
+                #                         new unit's column is fetched
             subs = sorted(
                 {c.rx_chan for c in self.conns.values()
-                 if c.rx_chan is not None and c.authed})
+                 if c.rx_chan is not None and c.authed}
+                | (self.autorun.channels
+                   if self.autorun is not None else set()))
             if subs:
                 bucket = self._serve_bucket(len(subs))
                 if bucket < len(subs):
@@ -1950,6 +1971,12 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                 pass
         self.fanout_s += time.monotonic() - t_fan
         self.blocks_fanned += 1
+        if self.autorun is not None and host_taps is not None:
+            t_ar = time.monotonic()
+            await loop.run_in_executor(
+                None, self.autorun.process_block, host_taps)
+            self.autorun_s.append((self.blocks_fanned,
+                                   time.monotonic() - t_ar))
 
     def _try_engine_reset(self) -> None:
         """Streaming-state reset in the executor (may itself block on

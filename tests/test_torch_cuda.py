@@ -610,3 +610,112 @@ def test_spectral_nr_block_runs_the_kernel_on_card(card, monkeypatch):
             1e-4 * float(y_c.abs().max()), blk
     assert calls == ["cpu"] * 3
     assert noise.spectral_nr_gains.launches == launches + 3
+
+
+# -- the decoders' front ends and the 20.25 kHz engine ------------------------
+
+def _audio(n, seed):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 12000.0
+    return (0.3 * np.sin(2 * np.pi * 1520.0 * t)
+            + 0.2 * rng.standard_normal(n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("which", ["wspr", "ft8", "ft4", "fft"])
+def test_frontend_on_card_matches_cpu(card, which):
+    """Each front end on the card against its CPU run on the same audio,
+    within 1e-5 of the plane's max (the CPU bound against the reference:
+    cuFFT and MKL sum in other orders)."""
+    from flydog_sdr_gps_tpu_torch.extensions import (audio_fft, ft4, ft8,
+                                                      wspr)
+    if which == "wspr":
+        x = torch.from_numpy(_audio(int(wspr.CAPTURE_S * 12000), 31))
+        outs = [wspr.frontend(x.to(d)) for d in ("cpu", card)]
+    elif which == "fft":
+        z = torch.from_numpy(_audio(2 * audio_fft.FFT_N, 32)).view(
+            torch.complex64)
+        outs = [(audio_fft.spectrum(z.to(d)),) for d in ("cpu", card)]
+    else:
+        mod = ft8 if which == "ft8" else ft4
+        cls = ft8.Ft8Ext if which == "ft8" else ft4.Ft4Ext
+        x = torch.from_numpy(_audio(int(cls.CAPTURE_S * 12000), 33))
+        outs = [(mod.spectrogram(x.to(d)),) for d in ("cpu", card)]
+    for ref, got in zip(*outs):
+        assert got.is_cuda and got.dtype == ref.dtype
+        assert got.shape == ref.shape
+        err = float((got.cpu() - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (which, err)
+
+
+@pytest.mark.parametrize("name", ["FT8", "FFT", "wspr"])
+def test_front_end_runs_on_its_own_stream(card, name):
+    """Fed the server's ``HostTaps`` while the default stream still has
+    a long queue (the next block's step, in the server), an extension's
+    front end and the copy of its results to the host do not wait for
+    that queue: they run on the extension's own stream.  Steady state:
+    a first capture (a spectrum, for FFT) has run before, so the
+    stream's buffers are in the allocator's cache (a first allocation
+    on a stream calls cudaMalloc, which waits for the card)."""
+    from flydog_sdr_gps_tpu_torch import extensions as ext_mod
+    from flydog_sdr_gps_tpu_torch.server.kiwi_server import HostTaps
+
+    class Engine:
+        device = card
+        source = None
+
+        class params:
+            fs_out = 12000.0
+    e = ext_mod.ext_create(name, Engine(), 0)
+    e.start()
+    if name != "FFT":
+        e.capture_samples = 2048        # a capture a block
+    rng = np.random.default_rng(41)
+    taps = []
+    for _ in range(3):
+        r = rng.standard_normal((1, 2048)).astype(np.float32)
+        taps.append(HostTaps(r, r, r, r, np.zeros(1, np.float32), {0: 0}))
+    e.process_block(taps[0])
+    assert e.process_block(taps[1]), name          # the first capture
+    torch.cuda.synchronize()
+    big = torch.randn(8192, 8192, device=card)
+    for _ in range(40):                 # ~1 s of the default stream
+        big = big @ big / 8192.0
+    queued = torch.cuda.Event()
+    queued.record()
+    assert e.process_block(taps[2]), name
+    assert not queued.query(), "the front end waited for the default stream"
+    assert e._side._stream != torch.cuda.default_stream(card)
+    torch.cuda.synchronize()
+
+
+def test_rx3_engine_on_card_matches_cpu(card):
+    """``rx3.wf3`` (20.25 kHz, d2=4) at audio_block=2048 on the card and
+    on the CPU from one scene, 3 blocks: an AM lane on 7.1 MHz and a USB
+    lane 7.2 kHz below the 14.2018 MHz tone.  Their S-meters within 1e-3
+    dB in every block; their audio within 2e-4*max|audio| + 5e-5 from
+    block 1 on (block 0 starts from the zero state, where the AGC lifts
+    float32 sums in another order by up to 84 dB: the CPU tests leave
+    that transient out for the same reason)."""
+    from flydog_sdr_gps_tpu_torch.numerology import CONFIGS
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    params = rx.RxParams.from_config(CONFIGS["rx3.wf3"], audio_block=2048)
+    taps = {}
+    for dev in ("cpu", card):
+        src = DeviceSceneSource(tones=[(7.1e6, 0.3, ("am", 1000.0, 0.6)),
+                                       (14.2018e6, 0.15)], noise_rms=3e-4,
+                                block=params.ddc.adc_block, device=dev)
+        eng = StreamEngine(params, src, device=dev)
+        eng.set_channel(0, freq_hz=7.1e6, mode=demod.MODE_AM, in_use=True)
+        eng.set_channel(1, freq_hz=14.1946e6, mode=demod.MODE_USB,
+                        in_use=True, passband=(200.0, 9000.0))
+        taps[str(dev)] = [eng.run_block() for _ in range(3)]
+    for blk, (ref, got) in enumerate(zip(taps["cpu"], taps[str(card)])):
+        assert got.audio.is_cuda and bool(torch.isfinite(got.audio).all())
+        sm = (got.smeter_dbm.cpu() - ref.smeter_dbm)[:2]
+        assert float(sm.abs().max()) <= 1e-3, blk
+        if blk:
+            want = ref.audio[:, :2]
+            tol = 2e-4 * float(want.abs().max()) + 5e-5
+            assert float((got.audio[:, :2].cpu() - want).abs().max()) \
+                <= tol, blk

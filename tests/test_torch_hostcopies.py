@@ -6,8 +6,12 @@ for bit against the originals on seeded inputs.
 numpy versions), ``runtime.native`` (the sample converters, the sequence
 check, the block ring), ``server.netproto`` bodies, ``utils.security``,
 ``utils.cfg``, ``utils.dx`` / ``utils.eibi`` lookups, ``utils.log`` /
-``utils.trace``, ``server.update`` version parsing and the two host-only
-extensions.  Nothing here has a tolerance: every comparison is ``==``.
+``utils.trace``, ``server.update`` version parsing, the host-only
+extensions, the GPS subsystem's host modules, and the decoders' host
+code: the WSPR and FT8/FT4 candidate searches, soft symbols, tone powers,
+LLRs and decoders on the reference's own front-end arrays, ``cw_decoder``,
+``spot_upload``'s query and datagram bytes, ``server.autorun``'s spec
+parser.  Nothing here has a tolerance: every comparison is ``==``.
 """
 
 import json
@@ -449,7 +453,8 @@ def test_log_and_trace_equal():
 # -- extensions ---------------------------------------------------------------
 
 def test_extension_registry_lists_what_is_ported():
-    assert text.ext_list() == ["IQ_display", "S_meter"]
+    assert text.ext_list() == ["CW_decoder", "FFT", "FT4", "FT8",
+                               "IQ_display", "S_meter", "wspr"]
     assert set(text.ext_list()) <= set(jext.ext_list())
 
 
@@ -727,3 +732,267 @@ def test_gps_receiver_clock_gate_bit_for_bit():
         log[name] = (out, eng.retuned)
     assert log["t"] == log["j"]
     assert 0 < log["t"][0][-1][0] < len(seq)
+
+
+# -- the decoders' host code ---------------------------------------------------
+
+import jax.numpy as jnp  # noqa: E402
+
+from chip_smoke import fsk_audio  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import cw_decoder as jcw  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import ft4 as jft4  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import ft8 as jft8  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import ft8_decode as jfd  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import ft8_ldpc_tables as jldpc  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import spot_upload as jsu  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import wspr as jwspr  # noqa: E402
+from flydog_sdr_gps_tpu.extensions import wspr_decode as jwd  # noqa: E402
+from flydog_sdr_gps_tpu.server import autorun as jautorun  # noqa: E402
+from flydog_sdr_gps_tpu_torch.extensions import cw_decoder as tcw  # noqa: E402
+from flydog_sdr_gps_tpu_torch.extensions import ft4 as tft4  # noqa: E402
+from flydog_sdr_gps_tpu_torch.extensions import ft8 as tft8  # noqa: E402
+from flydog_sdr_gps_tpu_torch.extensions import (  # noqa: E402
+    ft8_decode as tfd, ft8_ldpc_tables as tldpc, spot_upload as tsu,
+    wspr as twspr, wspr_decode as twd)
+from flydog_sdr_gps_tpu_torch.server import autorun as tautorun  # noqa: E402
+
+DECODER_PAIRS = {"cw_decoder": (jcw, tcw), "ft4": (jft4, tft4),
+                 "ft8": (jft8, tft8), "ft8_decode": (jfd, tfd),
+                 "ft8_ldpc_tables": (jldpc, tldpc),
+                 "spot_upload": (jsu, tsu), "wspr": (jwspr, twspr),
+                 "wspr_decode": (jwd, twd)}
+
+
+@pytest.mark.parametrize("name", sorted(DECODER_PAIRS))
+def test_decoder_constants_equal(name):
+    jm, tm = DECODER_PAIRS[name]
+    assert _public_constants(tm) == _public_constants(jm)
+    arrays = {k for k, v in vars(jm).items()
+              if k.isupper() and isinstance(v, np.ndarray)}
+    assert arrays <= {k for k, v in vars(tm).items()
+                      if k.isupper() and isinstance(v, np.ndarray)}
+    for k in arrays:
+        a, b = getattr(jm, k), getattr(tm, k)
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    if name == "wspr":      # the port names its front end's taps
+        from flydog_sdr_gps_tpu.ops import filters as jfilters
+        assert np.array_equal(tm.FRONTEND_TAPS, jfilters.kaiser_lowpass(
+            jm.FS_AUDIO, 150.0, 210.0, 60.0, numtaps=jm.DECIM * 8))
+
+
+def _same(a, b):
+    """``==`` through dicts, lists, tuples, numpy arrays and dataclasses
+    (each package's dataclass compared field by field)."""
+    import dataclasses
+    if dataclasses.is_dataclass(a):
+        return (type(a).__name__ == type(b).__name__
+                and _same(dataclasses.astuple(a), dataclasses.astuple(b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same, a, b))
+    return a == b
+
+
+@pytest.fixture(scope="module")
+def wspr_arrays():
+    """The reference front end's power and baseband for K1ABC FN42 37
+    at ``test_wspr_decode.py``'s SNR (0.25 signal, 0.25 noise)."""
+    tones = jwd.encode_to_tones(jwd.WsprMessage("K1ABC", "FN42", 37))
+    n = int(jwspr.CAPTURE_S * 12000)
+    f0 = jwspr.DIAL_OFFSET - 33 * jwspr.TONE_SPACING
+    sig = fsk_audio(tones, f0, jwspr.TONE_SPACING, jwspr.SPS * jwspr.DECIM, n)
+    sig = (0.25 * sig + 0.25 * _rng(2).standard_normal(n)).astype(np.float32)
+    power, bre, bim = jwspr._make_frontend()(jnp.asarray(sig))
+    power = np.asarray(power)
+    return power, np.asarray(bre) + 1j * np.asarray(bim)
+
+
+def test_wspr_host_bit_for_bit(wspr_arrays):
+    power, z375 = wspr_arrays
+    out = []
+    for w, wd in ((twspr, twd), (jwspr, jwd)):
+        cands = w.sync_correlate(power, max_dt_sym=power.shape[0] - w.NSYM)
+        soft = [w.soft_symbols(power, c) for c in cands[:5]]
+        tp = [w.tone_powers(z375, (c["bin"] - w.SPS // 2) * w.TONE_SPACING,
+                            c["dt"] * w.SPS, drift)
+              for c, drift in zip(cands[:3], (0.0, 1.5, -2.0))]
+        refined = [w.refine_candidate(z375, c, search_drift=i == 0)
+                   for i, c in enumerate(cands[:2])]
+        msgs = [wd.decode_soft_symbols(r["soft"]) for r in refined]
+        out.append((cands, soft, tp, refined, msgs))
+    assert _same(out[0], out[1])
+    assert out[0][4][0] == twd.WsprMessage("K1ABC", "FN42", 37)
+
+
+def test_wspr_decode_bit_for_bit():
+    out = []
+    for wd in (twd, jwd):
+        rng = _rng(11)
+        msgs = [wd.WsprMessage(c, g, d) for c, g, d in
+                (("K1ABC", "FN42", 37), ("VK2DEF", "QF56", 0),
+                 ("G4AAA", "IO91", 23))]
+        bits = [wd.pack_message(m) for m in msgs]
+        tones = [wd.encode_to_tones(m) for m in msgs]
+        coded = wd.conv_encode(np.concatenate([bits[0],
+                                               np.zeros(31, np.uint8)]))
+        soft = (2.0 * coded - 1) * 2.0 + np.random.default_rng(1) \
+            .standard_normal(162)
+        noisy = rng.standard_normal(162) * 3.0
+        out.append((bits, tones, coded, wd.interleave_map(),
+                    wd.stack_decode(soft), [wd.unpack_message(b)
+                                            for b in bits],
+                    wd.deinterleave_soft(noisy), wd.decode_soft_symbols(
+                        noisy.astype(np.float32)),
+                    [wd.plausible(m) for m in msgs]))
+    assert _same(out[0], out[1])
+
+
+@pytest.fixture(scope="module")
+def ft_arrays():
+    """The reference's FT8 and FT4 spectrograms (and the FT4 audio) of
+    CQ K1ABC FN42 at ``test_ft8_decode.py``'s / ``test_ft4.py``'s SNRs."""
+    payload = jfd.pack_payload(jfd.Ft8Message("CQ", "K1ABC", "FN42"))
+    t8 = jfd.codeword_to_tones(jfd.ldpc_encode(jfd.add_crc(payload)))
+    n8 = int(jft8.Ft8Ext.CAPTURE_S * 12000)
+    a8 = (0.3 * fsk_audio(t8, 1200.0, jft8.BAUD, jft8.SPS, n8)
+          + 0.2 * _rng(3).standard_normal(n8)).astype(np.float32)
+    t4 = jft4.encode_tones(payload)
+    n4 = int(jft4.Ft4Ext.CAPTURE_S * 12000)
+    a4 = (0.3 * fsk_audio(t4, 1500.0, jft4.BAUD, jft4.SPS, n4)
+          + 0.2 * _rng(4).standard_normal(n4)).astype(np.float32)
+    return (np.asarray(jft8._make_spectrogram()(jnp.asarray(a8))),
+            np.asarray(jft4._make_spectrogram()(jnp.asarray(a4))),
+            np.asarray(a4, np.float64))
+
+
+def test_ft8_host_bit_for_bit(ft_arrays):
+    power = ft_arrays[0]
+    out = []
+    for f8, fd in ((tft8, tfd), (jft8, jfd)):
+        rng = _rng(12)
+        cands = f8.costas_sync(power)
+        logls = [f8.tone_logls(power, c) for c in cands[:5]]
+        llrs = [fd.tone_powers_to_llrs(p) for p in logls]
+        msg91 = fd.add_crc(np.random.default_rng(2).integers(
+            0, 2, 77).astype(np.uint8))
+        cw = fd.ldpc_encode(msg91)
+        noisy = (2.0 * cw - 1.0) * 2.0 + rng.standard_normal(174) * 0.9
+        bad = cw.copy()
+        bad[100] ^= 1
+        calls = [fd.Ft8Message(*m) for m in (
+            ("CQ", "K1ABC", "FN42"), ("W9XYZ", "K1ABC", "R-15"),
+            ("K1ABC", "W9XYZ", "RR73"), ("QRZ", "G4AAA", "73"))]
+        packed = [fd.pack_payload(m) for m in calls]
+        out.append((cands, logls, llrs, [fd.decode_llrs(x) for x in llrs],
+                    cw, fd.ldpc_check(cw), fd.ldpc_check(bad),
+                    fd.bp_decode(noisy), fd.crc14(msg91[:77]),
+                    fd.check_crc(msg91), packed,
+                    [fd.unpack_payload(b) for b in packed],
+                    fd.codeword_to_tones(cw)))
+    assert _same(out[0], out[1])
+    assert out[0][3][0] == tfd.Ft8Message("CQ", "K1ABC", "FN42")
+
+
+def test_ft4_host_bit_for_bit(ft_arrays):
+    _, power, audio = ft_arrays
+    out = []
+    for f4 in (tft4, jft4):
+        cands = f4.costas_sync(power)
+        pw = [f4.matched_tone_powers(audio, c, df) for c in cands[:2]
+              for df in (0.0, -5.86, 5.86)]
+        llrs = [f4.tone_powers_to_llrs(p) for p in pw]
+        out.append((cands, pw, llrs, [f4.decode_llrs(x) for x in llrs],
+                    f4.encode_tones(np.zeros(77, np.uint8)),
+                    f4.DATA_POS))
+    assert _same(out[0], out[1])
+    assert tfd.Ft8Message("CQ", "K1ABC", "FN42") in out[0][3]
+
+
+def test_cw_decoder_bit_for_bit():
+    from flydog_sdr_gps_tpu.server import kiwi_server as jks
+    from flydog_sdr_gps_tpu_torch.server import kiwi_server as tks
+    from tests.test_extensions import morse_audio
+
+    class Engine:
+        class params:
+            fs_out = 12000.0
+    audio = morse_audio("CQ DE K1ABC 73 ?")
+    out = []
+    for mod, ks in ((text, tks), (jext, jks)):
+        dec = mod.ext_create("CW_decoder", Engine(), 1)
+        dec.start(pitch=500.0, wpm=22.0)
+        msgs = []
+        for i in range(0, len(audio) - 255, 256):
+            row = audio[None, i:i + 256]
+            taps = ks.HostTaps(row, row, row, row,
+                               np.zeros(2, np.float32), {1: 0})
+            msgs.append(dec.process_block(taps))
+        out.append((msgs, dec.wpm, dec.thresh, dec.env, dec.symbol))
+    assert out[0] == out[1]
+    assert "K1ABC" in "".join(p.decode() for m in out[0][0] for _t, p in m)
+
+
+def test_spot_upload_bit_for_bit():
+    import time
+    when = time.struct_time((2026, 8, 21, 4, 32, 0, 0, 0, 0))
+    spot = dict(call="K1ABC", grid="FN42", freq_hz=14075234, snr_db=-7,
+                mode="FT8", time=1787000000)
+    out = []
+    for su in (tsu, jsu):
+        url = su.wsprnet_url("TP0U", "JN47", 7.0386, when, -17.0, 0.3, 1,
+                             7.040102, "K1ABC", "FN42", "+37")
+        pkts = []
+        for antenna in (None, "dipole"):
+            rep = su.PskReporter("TP0U", "JN47", antenna=antenna)
+            rep.rand_id = 0x1234ABCD
+            pkts += [rep.datagram([spot], now=1787000100 + k)
+                     for k in range(4)]
+        sent = []
+        up = su.SpotUploader("TP0U", "JN47", http_send=sent.append,
+                             udp_send=lambda pkt, addr: sent.append(
+                                 (pkt, addr)))
+        up.reporter.rand_id = 7
+        for s in (dict(ext="WSPR", dial_khz=7038.6, t=1787000000.0,
+                       text="K1ABC FN42 +37 -17dB 0.3s"),
+                  dict(ext="FT8", dial_khz=14074.0, t=1787000000.0,
+                       text="CQ K1ABC FN42 1230.0"),
+                  dict(ext="FT4", dial_khz=14080.0, t=1787000001.0,
+                       text="W9XYZ K1ABC R-07 611.5"),
+                  dict(ext="FT8", dial_khz=14074.0, t=1787000002.0,
+                       text="")):
+            up(s)
+        out.append((url, pkts, sent, up.sent))
+    assert out[0] == out[1]
+    assert len(out[0][2]) == 3
+
+
+@pytest.mark.parametrize("name", ["test_wsprnet_url_fields",
+                                  "test_pskreporter_datagram_structure",
+                                  "test_spot_uploader_routing"])
+def test_spot_upload_expectations_hold_on_the_port(name, monkeypatch):
+    """``tests/test_spot_upload.py``'s own assertions, on the port's
+    module."""
+    from tests import test_spot_upload
+    monkeypatch.setattr(test_spot_upload, "su", tsu)
+    getattr(test_spot_upload, name)()
+
+
+def test_autorun_parse_spec_bit_for_bit():
+    specs = ["wspr:7038.6", "ft8:14074", "WSPR:7.0386M", "wspr:7038600",
+             "ft8/ft4:14074/14080", "ft8/ft4:14074", "FT4:14080",
+             "nosuch:123", "ft8/ft4:1/2/3"]
+    out = []
+    for mod in (tautorun, jautorun):
+        got = []
+        for spec in specs:
+            try:
+                got.append(mod.parse_spec(spec))
+            except ValueError as e:
+                got.append(("ValueError", str(e)))
+        out.append(got)
+    assert out[0] == out[1]
+    assert out[0][-2][0] == "ValueError"

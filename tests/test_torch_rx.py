@@ -12,6 +12,12 @@ unfused one rotated, so each branch converts its own):
   passband FIR filled (it spans 7 blocks at audio_block=128), AGC and
   SAM PLL settled on their carriers — and streams three more blocks.
 
+Also ``RxParams.from_config`` for every firmware configuration, the
+full chain at 20.25 kHz (``rx3.wf3``, ``tests/test_rx3_20k.py``'s scene
+and assertions) through both engines, and ``tests/test_rx14_mixed.py``'s
+14-channel scenario with the wspr, FT8 and CW_decoder extensions on the
+port's engine.
+
 Tolerance: audio within 2e-4*max|audio| + 5e-5 per block (the bound of
 `tests/test_pallas_kernels.py:111`, where two rotator decompositions
 differ the same way); the S-meter peak within 1e-3 dB.  Run B holds
@@ -36,10 +42,16 @@ import pytest
 import torch
 
 from flydog_sdr_gps_tpu.models import rx_channel as jrx
-from flydog_sdr_gps_tpu.numerology import ADC_CLOCK_NOM
+from flydog_sdr_gps_tpu.numerology import ADC_CLOCK_NOM, CONFIGS
 from flydog_sdr_gps_tpu.ops import demod
+from flydog_sdr_gps_tpu.runtime import source as jsource
+from flydog_sdr_gps_tpu.runtime import stream as jstream
 from flydog_sdr_gps_tpu_torch import convert
+from flydog_sdr_gps_tpu_torch import extensions as text
+from flydog_sdr_gps_tpu_torch import numerology as tnum
 from flydog_sdr_gps_tpu_torch.models import rx_channel as trx
+from flydog_sdr_gps_tpu_torch.runtime import source as tsource
+from flydog_sdr_gps_tpu_torch.runtime import stream as tstream
 
 C = 64                      # the reference's fused Pallas path needs C % 64
 BLOCK = 128
@@ -166,3 +178,132 @@ def test_state_conversion_refuses_the_other_branch():
                                                  audio_block=BLOCK)))
     with pytest.raises(ValueError, match="rotated"):
         convert.state_from_ref(js, tp, "fused", "cpu")
+
+
+# -- firmware configurations and the 20.25 kHz chain --------------------------
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+@pytest.mark.parametrize("block", [256, 2048])
+def test_from_config_matches_reference(name, block):
+    assert dataclasses.astuple(tnum.CONFIGS[name]) == \
+        dataclasses.astuple(CONFIGS[name])
+    jp = jrx.RxParams.from_config(CONFIGS[name], audio_block=block)
+    tp = trx.RxParams.from_config(tnum.CONFIGS[name], audio_block=block)
+    assert tp.num_channels == jp.num_channels == CONFIGS[name].rx_chans
+    assert tp.snd_rate == jp.snd_rate and tp.fs_out == jp.fs_out
+    assert (tp.ddc.d1, tp.ddc.d2) == (jp.ddc.d1, jp.ddc.d2)
+    for taps in ("h1", "h2"):
+        assert np.array_equal(getattr(tp.ddc, taps), getattr(jp.ddc, taps))
+    assert (tp.ddc.adc_block, tp.ddc.k1, tp.ddc.tail1, tp.ddc.tail2) == \
+        (jp.ddc.adc_block, jp.ddc.k1, jp.ddc.tail1, jp.ddc.tail2)
+    assert (tp.fir.fft_size, tp.fir.ntaps, tp.fir.hop) == \
+        (jp.fir.fft_size, jp.fir.ntaps, jp.fir.hop)
+    for part in ("agc", "sam", "nr", "lms_notch_p", "lms_den_p"):
+        assert dataclasses.asdict(getattr(tp, part)) == \
+            dataclasses.asdict(getattr(jp, part)), part
+    for coef in ("sb_coef_l", "sb_coef_u"):
+        assert np.array_equal(np.asarray(getattr(tp, coef)),
+                              np.asarray(getattr(jp, coef))), coef
+    if name == "rx3.wf3":
+        assert abs(tp.fs_out - ADC_CLOCK_NOM / 6172) < 1e-9
+        assert (tp.ddc.d1, tp.ddc.d2) == (1543, 4)
+
+
+def _tone(audio, fs, lo=100.0):
+    w = np.abs(np.fft.rfft(audio * np.hanning(len(audio))))
+    f = np.fft.rfftfreq(len(audio), 1.0 / fs)
+    sel = f >= lo
+    return f[sel][np.argmax(w[sel])]
+
+
+def test_rx3_full_chain_20250hz_matches_reference():
+    """``test_rx3_20k.py``'s scene through both engines (the port's
+    default, fused, stage 2 beside the reference's CPU one): a USB lane
+    at +7.2 kHz, an AM lane with 5.5 kHz modulation, an NBFM lane on
+    empty spectrum.  USB and AM held to the audio bound in every block
+    after the first (block 0 starts from the zero state while the DDC's
+    filters fill; see the module docstring for why that transient is
+    not compared); the NBFM lane hears only the 5e-4 rms noise, where
+    its discriminator's atan2 amplifies rounding, so it is held to its
+    level within 1 %, as ``test_torch_stream.py`` holds empty lanes."""
+    cfg = CONFIGS["rx3.wf3"]
+    f_usb, off_usb = 7.05e6, 7200.0
+    f_am, mod_am = 14.2e6, 5500.0
+
+    def tones():
+        return ((f_usb + off_usb, 0.4),
+                (f_am, 0.4,
+                 lambda t: 1 + 0.6 * np.cos(2 * np.pi * mod_am * t)))
+    ref = jstream.StreamEngine(jrx.RxParams.from_config(cfg, audio_block=256),
+                               jsource.SyntheticSource(tones(), 0.0005))
+    port = tstream.StreamEngine(
+        trx.RxParams.from_config(tnum.CONFIGS["rx3.wf3"], audio_block=256),
+        tsource.SyntheticSource(tones(), 0.0005), device="cpu")
+    assert port.params.stage2 == "fused"
+    for eng in (ref, port):
+        eng.set_channel(0, freq_hz=f_usb, mode=demod.MODE_USB, in_use=True,
+                        passband=(200.0, 9000.0))
+        eng.set_channel(1, freq_hz=f_am, mode=demod.MODE_AM, in_use=True,
+                        passband=(-8000.0, 8000.0))
+        eng.set_channel(2, freq_hz=28.3e6, mode=demod.MODE_NBFM,
+                        in_use=True)
+    rows = []
+    for blk in range(8):
+        r = np.asarray(ref.run_block().audio)
+        g = port.run_block().audio.numpy()
+        rows.append(g)
+        if blk >= 1:
+            tol = 2e-4 * max(np.abs(r).max(), 1e-6) + 5e-5
+            np.testing.assert_allclose(g[:, :2], r[:, :2], rtol=0, atol=tol,
+                                       err_msg=f"block {blk}")
+            np.testing.assert_allclose(np.sqrt((g[:, 2] ** 2).mean()),
+                                       np.sqrt((r[:, 2] ** 2).mean()),
+                                       rtol=1e-2, err_msg=f"block {blk}")
+    # test_rx3_20k's own assertions, on the port
+    fs = port.params.fs_out
+    audio = np.concatenate(rows)[512:]
+    assert audio.shape[1] == 3 and np.all(np.isfinite(audio))
+    assert abs(_tone(audio[:, 0], fs) - off_usb) < 40
+    assert abs(_tone(audio[:, 1], fs, lo=1000.0) - mod_am) < 40
+    cfg_t = tnum.CONFIGS["rx3.wf3"]
+    assert cfg_t.wf_chans == 3 and cfg_t.gps_chans > 0
+
+
+def test_rx14_with_decoder_extensions():
+    """``test_rx14_mixed.py`` on the port's engine: 14 channels, a
+    wspr, an FT8 and a CW_decoder extension fed the engine's own taps
+    (tensors) every block."""
+    cfg = tnum.CONFIGS["rx14.wf0"]
+    params = trx.RxParams.from_config(cfg, audio_block=128)
+    assert params.num_channels == 14
+    tones = [(5.0e6 + 2e6 * k + 1000.0, 0.25) for k in range(3)]
+    eng = tstream.StreamEngine(params,
+                               tsource.SyntheticSource(tones, 0.002),
+                               device="cpu")
+    for k in range(3):
+        eng.set_channel(k, freq_hz=5.0e6 + 2e6 * k, mode=demod.MODE_USB,
+                        in_use=True)
+    for k in range(3, 14):
+        eng.set_channel(k, freq_hz=1.0e6 + 2e6 * k, mode=demod.MODE_AM,
+                        in_use=True)
+    exts = [text.ext_create("wspr", eng, 0), text.ext_create("FT8", eng, 1),
+            text.ext_create("CW_decoder", eng, 2)]
+    for e in exts:
+        e.start()
+    rows = []
+    for _ in range(6):
+        taps = eng.run_block()
+        rows.append(taps.audio.numpy().copy())
+        for e in exts:
+            e.process_block(taps)          # must not throw / stall
+    audio = np.concatenate(rows)[256:]
+    assert audio.shape[1] == 14 and np.all(np.isfinite(audio))
+    for k in range(3):
+        spec = np.abs(np.fft.rfft(audio[:, k] * np.hanning(len(audio))))
+        f = np.fft.rfftfreq(len(audio), 1.0 / params.fs_out)
+        assert abs(f[np.argmax(spec)] - 1000.0) < 60, k
+    # the captures grew by every block, copied out of the taps
+    assert exts[0]._samples == exts[1]._samples == 6 * 128
+    np.testing.assert_array_equal(
+        exts[1]._capture._buf[:6 * 128].numpy(),
+        np.concatenate(rows)[:, 1])

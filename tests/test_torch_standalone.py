@@ -10,7 +10,8 @@ originals.
   audio_block=256), then one ``run_block_gather`` and one waterfall row
   from that block, then a ``KiwiServer`` that serves a listener two
   blocks, then a GPS cold search and a chunk of tracking on the
-  device-path sky;
+  device-path sky, then the decoders' front ends on a short capture
+  and a server whose autorun units claim idle channels;
 - a source scan finds no ``import``/``from`` of either in the port's
   package or ``chip_smoke.py``;
 - every public constant of ``numerology`` is equal, and the filter
@@ -65,7 +66,7 @@ def test_port_runs_without_jax_and_reference_package():
             port.__path__, port.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 38, names
+        assert len(names) >= 49, names
         for wanted in ("models.waterfall", "server.wf_service",
                        "ops.windows", "server.kiwi_server", "server.webui",
                        "server.services", "server.netproto", "run_server",
@@ -76,7 +77,13 @@ def test_port_runs_without_jax_and_reference_package():
                        "models.gps.galileo", "models.gps.ephemeris",
                        "models.gps.solver", "models.gps.clock",
                        "models.gps.cacode", "models.gps.e1b_codes",
-                       "runtime.gps_service", "convert"):
+                       "runtime.gps_service", "convert",
+                       "extensions.audio_fft", "extensions.cw_decoder",
+                       "extensions.wspr", "extensions.wspr_decode",
+                       "extensions.ft8", "extensions.ft8_decode",
+                       "extensions.ft8_ldpc_tables", "extensions.ft4",
+                       "extensions.spot_upload", "extensions.capture",
+                       "server.autorun"):
             assert f"{port.__name__}.{wanted}" in names, wanted
 
         from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -158,6 +165,24 @@ def test_port_runs_without_jax_and_reference_package():
         assert set(mgr.channels) == set(ephs), sorted(mgr.channels)
         assert all(c.epochs == 20 for c in mgr.channels.values())
         assert GpsReceiver(sky, mgr).status()["tracking"] == len(ephs)
+
+        # the decoders' front ends, and autorun units on the server
+        from flydog_sdr_gps_tpu_torch.extensions import ft8, wspr
+        power, z = wspr.frontend(torch.randn(12000 * 12))
+        assert power.shape == (17, 256) and z.dtype == torch.complex64
+        assert ft8.spectrogram(torch.randn(12000)).shape == (6, 1024)
+
+        async def autorun():
+            server = KiwiServer(eng, realtime=False, port=0,
+                                autorun=["wspr:7038.6", "FT8:14074"])
+            server.start_tasks()
+            # (the wspr unit waits for the next 120 s cycle to capture)
+            wspr_unit, ft8_unit = server.autorun.units
+            while not (wspr_unit.ext is not None and ft8_unit.ext is not None
+                       and ft8_unit.ext._samples):
+                await asyncio.sleep(0.01)
+            await server.stop()
+        asyncio.run(autorun())
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("STANDALONE-OK")
     """)
