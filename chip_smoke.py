@@ -124,6 +124,26 @@ What it does, in order (any failed check raises; exit code != 0):
    the recorded off-air WSPR capture (``tests/data/wspr_offair_375.npz``)
    through the host path must give ZL3DMH RE66 37; the FFT extension's
    row peaks at a test tone's bin; each front end timed alone.
+8a. The host-only decoders through device taps: each of FSK ("CQ DX" at
+   45.45 Bd / 170 Hz), NAVTEX ("NAV WARNING 42"), timecode (a DCF77
+   minute, "2024-03-02 09:05"), FAX (a stripe pattern), SSTV (a Martin M1
+   round trip), Loran-C (GRI 6731 folded, and found by a search), ALE 2G
+   (three words in noise), STANAG 4285 (100 bits at 600 bps), HFDL (an
+   MPDU at 1200 bps) and DRM (FAC, SDC and MSC from ``DrmTx``, in the
+   post-AGC IQ tap) gets the signal its reference test synthesizes,
+   streamed through (2048, 4096) taps on the card, a new tap tensor a
+   block, and must decode what that test asserts.  Prints each
+   decoder's host ms a block (median) and the ms of the block that
+   completed its message.
+8b. NAVTEX end to end: phase 5's scene plus one NAVTEX emitter 1000 Hz
+   above 518 kHz (the source's FSK tone: 100 Bd, 170 Hz shift, the bits
+   of "NAV WARNING 42"'s SITOR-B stream, then idle) through ``rx_block``
+   (kernels 1, 3, 4) and a ``KiwiServer`` at C=4096; one SND client tuned
+   to 518.000 kHz USB with ``SET ext_switch_to_client=NAVTEX
+   center=1000`` on its EXT socket.  The text must arrive on the EXT
+   socket within 30 blocks, with kernels 1, 3 and 4 launched once a
+   block; prints the launch counts, the server's realtime factor over
+   those blocks and the extension's host ms a block.
 
 Kernel 7's launch count is read around phases 3 to 6b and must be one a
 block in 4, 5 and 6b, where a lane has spectral NR on.  ``--profile``
@@ -2135,6 +2155,448 @@ def phase_decoders(torch, device, timer, channels: int, block: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the host-only decoders on the card's taps
+# ---------------------------------------------------------------------------
+# The signals are synthesized as the reference package's own decoder tests
+# (tests/test_decoders2.py) synthesize them; those tests import jax, so the
+# synthesizers are copied here, and tests/test_torch_decoders.py holds the
+# copies to the originals and imports them from here.
+
+FS_AUDIO = 12000.0
+NAVTEX_TEXT = "NAV WARNING 42"
+NAVTEX_KHZ = 518.0      # the client's USB dial; the emitter sits 1000 Hz up
+NAVTEX_BLOCKS = 30      # ~5.1 s of 170.656 ms blocks; the message is 3.64 s
+
+
+def rtty_audio(codes, baud: float, center: float, shift: float,
+               fs: float = FS_AUDIO, lead: float = 0.2) -> np.ndarray:
+    """ITA2 frames (1 start + 5 data + 1.5 stop bits) as FSK audio, 8
+    mark bits before the first frame and 4 after the last (float32)."""
+    bits = []
+    for code in codes:
+        bits.append((0, 1.0))                     # start
+        for i in range(5):
+            bits.append(((code >> i) & 1, 1.0))
+        bits.append((1, 1.5))                     # stop
+    samples = [np.zeros(int(lead * fs))]
+    phase = 0.0
+    bits = [(1, 8.0)] + bits + [(1, 4.0)]
+    for bit, dur in bits:
+        n = int(round(dur * fs / baud))
+        f = center + (shift / 2 if bit else -shift / 2)
+        t = np.arange(n)
+        samples.append(np.sin(phase + 2 * np.pi * f * t / fs))
+        phase = (phase + 2 * np.pi * f * n / fs) % (2 * np.pi)
+    return np.concatenate(samples).astype(np.float32)
+
+
+def navtex_bits(codes) -> list[int]:
+    """CCIR 476 codes as the bits sent, 7 a code, most significant
+    first."""
+    return [(code >> i) & 1 for code in codes for i in range(6, -1, -1)]
+
+
+def navtex_audio(codes, fs: float = FS_AUDIO) -> np.ndarray:
+    """100 Bd FSK of ``navtex_bits(codes)`` at 1000 +- 85 Hz (a 1 is the
+    upper tone), 1024 zeros before and 2048 after (float32)."""
+    sps = int(round(fs / 100.0))
+    phase = 0.0
+    chunks = [np.zeros(1024)]
+    for b in navtex_bits(codes):
+        f = 1000.0 + (85.0 if b else -85.0)
+        t = np.arange(sps)
+        chunks.append(np.sin(phase + 2 * np.pi * f * t / fs))
+        phase = (phase + 2 * np.pi * f * sps / fs) % (2 * np.pi)
+    chunks.append(np.zeros(2048))
+    return np.concatenate(chunks).astype(np.float32)
+
+
+def dcf77_audio(bits, fs: float = FS_AUDIO) -> np.ndarray:
+    """A DCF77-style AM second stream of one frame (a 500 Hz tone at
+    amplitude 0.1 for the first 0.2 s of a second that sends a 1, 0.1 s
+    for a 0), second 59 unreduced, then the next minute's first second
+    (float32)."""
+    def tone(n, a):
+        return a * np.sin(2 * np.pi * 500.0 * np.arange(n) / fs)
+    sec = int(fs)
+    chunks = []
+    for b in bits:
+        red = int(0.2 * fs) if b else int(0.1 * fs)
+        chunks.append(np.concatenate([tone(red, 0.1), tone(sec - red, 1.0)]))
+    chunks.append(tone(sec, 1.0))
+    chunks.append(np.concatenate([tone(int(0.1 * fs), 0.1),
+                                  tone(sec - int(0.1 * fs), 1.0)]))
+    return np.concatenate(chunks).astype(np.float32)
+
+
+def fax_audio(line_n: int, fs: float = FS_AUDIO) -> np.ndarray:
+    """Five WEFAX lines of ``line_n`` samples: a white sync pulse over the
+    first 1/20 of a line, then black, white, black, white quarters, FM
+    between 1500 (black) and 2300 Hz (white) (float32)."""
+    lum = np.zeros(line_n)
+    lum[: line_n // 20] = 1.0
+    q = line_n // 4
+    lum[q:2 * q] = 1.0
+    lum[3 * q:] = 1.0
+    freq = 1500.0 + lum * 800.0
+    phase = 2 * np.pi * np.cumsum(np.tile(freq, 5)) / fs
+    return np.sin(phase).astype(np.float32)
+
+
+def sstv_audio(sstv, fs: float = FS_AUDIO) -> np.ndarray:
+    """A Martin M1 transmission from the constants of the module ``sstv``:
+    the VIS code 44 (leader, break, leader, start bit, 7 bits least
+    significant first, even parity, stop bit), then 8 lines whose green
+    scan is white on the left half, blue black, red white on the right
+    half (float32)."""
+    m = sstv.MODES[44]
+    ms = fs / 1000.0
+    st = [0.0]
+
+    def tone_seg(freq, n_samples):
+        t = np.arange(int(n_samples))
+        seg = np.sin(st[0] + 2 * np.pi * freq * t / fs)
+        st[0] = (st[0] + 2 * np.pi * freq * int(n_samples) / fs) \
+            % (2 * np.pi)
+        return seg
+
+    parts = [np.zeros(1000)]
+    parts.append(tone_seg(sstv.F_LEADER, 300 * ms))
+    parts.append(tone_seg(sstv.F_SYNC, 10 * ms))
+    parts.append(tone_seg(sstv.F_LEADER, 300 * ms))
+    parts.append(tone_seg(sstv.F_SYNC, 30 * ms))
+    vis_bits = [(44 >> b) & 1 for b in range(7)]
+    vis_bits.append(sum(vis_bits) % 2)
+    for b in vis_bits:
+        parts.append(tone_seg(sstv.F_BIT1 if b else sstv.F_BIT0, 30 * ms))
+    parts.append(tone_seg(sstv.F_SYNC, 30 * ms))
+
+    def scan_seg(levels):
+        seg = []
+        for lv in levels:
+            f = sstv.F_BLACK + lv * (sstv.F_WHITE - sstv.F_BLACK)
+            seg.append(tone_seg(f, m.scan_ms * ms / len(levels)))
+        return np.concatenate(seg)
+
+    for _line in range(8):
+        parts.append(tone_seg(sstv.F_SYNC, m.sync_ms * ms))
+        parts.append(scan_seg([1.0, 0.0]))
+        parts.append(tone_seg(1500, m.sep_ms * ms))
+        parts.append(scan_seg([0.0, 0.0]))
+        parts.append(tone_seg(1500, m.sep_ms * ms))
+        parts.append(scan_seg([0.0, 1.0]))
+        parts.append(tone_seg(1500, m.sep_ms * ms))
+    parts.append(np.zeros(4000))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def loran_audio(gri: int, secs: float, fs: float = FS_AUDIO) -> np.ndarray:
+    """Envelope-like Loran-C pulse groups (8 Hann pulses of ~600 us, 1 ms
+    apart, every GRI) in 0.02 rms noise of seed 7 (float32)."""
+    n = int(secs * fs)
+    audio = 0.02 * np.random.default_rng(7).standard_normal(n)
+    period = fs * gri / 1e5
+    t0 = 0.0
+    pulse = np.hanning(int(fs * 300e-6) * 2 + 1)
+    while t0 < n:
+        for k in range(8):
+            c = int(t0 + k * fs * 1e-3)
+            lo, hi = c - len(pulse) // 2, c + len(pulse) // 2 + 1
+            if 0 <= lo and hi < n:
+                audio[lo:hi] += pulse
+        t0 += period
+    return audio.astype(np.float32)
+
+
+def _text(msgs, tags=("chars", "time")) -> str:
+    return "".join(p.decode() for t, p in msgs if t in tags)
+
+
+def _rows(msgs, tag) -> list[np.ndarray]:
+    return [np.frombuffer(p, np.uint8) for t, p in msgs if t == tag]
+
+
+def _fax_ok(msgs) -> bool:
+    rows = _rows(msgs, "fax_line")
+    if len(rows) < 3:
+        return False
+    row = rows[2].astype(np.float64) / 255.0
+    return bool(row[96:120].mean() > 0.7 and row[140:185].mean() < 0.3)
+
+
+def _sstv_ok(msgs) -> bool:
+    modes = [p.decode() for t, p in msgs if t == "sstv_mode"]
+    lines = [np.frombuffer(p[1:], np.uint8).reshape(3, 64)
+             for t, p in msgs if t == "sstv_line"]
+    if modes != ["Martin M1"] or len(lines) < 6:
+        return False
+    r, g, b = lines[3].astype(np.float64) / 255.0
+    return bool(g[8:24].mean() > 0.7 and g[40:56].mean() < 0.3
+                and r[8:24].mean() < 0.3 and r[40:56].mean() > 0.7
+                and b.mean() < 0.2)
+
+
+def _loran_ok(msgs) -> bool:
+    found = [p.decode().split()[0] for t, p in msgs if t == "gri_found"]
+    rows = {t: np.frombuffer(p, np.uint8).astype(float) for t, p in msgs
+            if t.startswith("scope")}
+    if found != ["6731"] or set(rows) != {"scope0", "scope1"}:
+        return False
+    s0, s1 = rows["scope0"], rows["scope1"]
+    contrast0 = s0.max() / max(np.median(s0), 1)
+    contrast1 = s1.max() / max(np.median(s1), 1)
+    return bool(s0.max() == 255 and np.median(s0) < 60
+                and contrast0 > 2.5 * contrast1)
+
+
+def _s4285_bits(msgs) -> np.ndarray:
+    return np.unpackbits(np.frombuffer(
+        b"".join(p for t, p in msgs if t == "s4285_bits"), np.uint8))
+
+
+def host_decoder_cases() -> list[dict]:
+    """Phase 8a's cases: for each decoder the signal its reference test
+    synthesizes, the extension's start parameters (and commands), and
+    ``done(msgs)``: what that test asserts of the messages.  ``feed_all``
+    streams the whole signal before ``done`` is asked (Loran-C's scope
+    rows are read at the end, as its test reads them)."""
+    from flydog_sdr_gps_tpu_torch.extensions import (ale_2g, drm, fax, fsk,
+                                                      hfdl, navtex, s4285,
+                                                      sstv, timecode)
+    inv = {c: i for i, c in enumerate(fsk.ITA2_LTRS)}
+    fx = fax.FaxExt(DecoderEngine(), 0)
+    fx.start(lpm=120.0, px=256)
+    rng = np.random.default_rng(11)
+    ale_audio = ale_2g.modulate([("TO", "HQ@"), ("TO", "HQ@"),
+                                 ("TIS", "SAM")], fs=FS_AUDIO)
+    ale_audio = ale_audio + 0.15 * rng.standard_normal(
+        len(ale_audio)).astype(np.float32)
+    s_bits = np.random.default_rng(21).integers(0, 2, 100).astype(np.uint8)
+    hfdl_payload = b"SQUITTER 01"
+    drm_iq = np.concatenate([drm.DrmTx().superframe(b"S", b"M"),
+                             np.zeros(4000, np.complex64)])
+    return [
+        dict(name="FSK", what="'CQ DX' at 45.45 Bd / 170 Hz",
+             params=dict(center=1000.0, shift=170.0, baud=45.45),
+             signal=rtty_audio([fsk.LTRS] + [inv[c] for c in "CQ DX"],
+                               45.45, 1000.0, 170.0),
+             done=lambda m: "CQ DX" in _text(m)),
+        dict(name="NAVTEX", what=repr(NAVTEX_TEXT), params=dict(center=1000.0),
+             signal=navtex_audio(navtex.encode_text(NAVTEX_TEXT)),
+             done=lambda m: NAVTEX_TEXT in _text(m)),
+        dict(name="timecode", what="DCF77 2024-03-02 09:05", params={},
+             signal=dcf77_audio(timecode.encode_dcf77_frame(
+                 timecode.DecodedTime(minute=5, hour=9, day=2, month=3,
+                                      year=24))),
+             done=lambda m: "2024-03-02 09:05" in _text(m)),
+        dict(name="FAX", what="the stripe pattern (120 LPM, 256 px)",
+             params=dict(lpm=120.0, px=256), signal=fax_audio(fx.line_samples),
+             done=_fax_ok),
+        dict(name="SSTV", what="Martin M1, 8 striped lines",
+             params=dict(px=64), signal=sstv_audio(sstv), done=_sstv_ok),
+        dict(name="Loran_C", what="GRI 6731 folded, and found by a search",
+             params=dict(gri0=6731, gri1=8000), commands=[{"search": True}],
+             signal=loran_audio(6731, 6.0), done=_loran_ok, feed_all=True),
+        dict(name="ALE_2G", what="[TO] HQ@ and [TIS] SAM", params={},
+             signal=ale_audio,
+             done=lambda m: (lambda w: "[TO] HQ@" in w and "[TIS] SAM" in w
+                             and len(w) >= 3)(
+                 [p.decode().split(" (")[0] for t, p in m
+                  if t == "ale_word"])),
+        dict(name="s4285", what="100 bits at 600 bps", params=dict(rate=600),
+             signal=np.concatenate([s4285.modulate(s_bits, rate=600),
+                                    np.zeros(20000, np.float32)]),
+             done=lambda m: (len(_s4285_bits(m)) >= 100 and np.array_equal(
+                 _s4285_bits(m)[:100], s_bits))),
+        dict(name="HFDL", what="'SQUITTER 01' at 1200 bps", params={},
+             signal=np.concatenate([hfdl.modulate(hfdl.make_mpdu(
+                 hfdl_payload), rate=1200), np.zeros(60000, np.float32)]),
+             done=lambda m: ("1200|" + hfdl_payload.hex()).encode() in
+             [p for t, p in m if t == "hfdl_mpdu"]),
+        dict(name="DRM", what="FAC, SDC 'S' and MSC 'M' through the IQ tap",
+             params={}, signal=drm_iq,
+             done=lambda m: ({"drm_fac", "drm_sdc", "drm_msc"}
+                             <= {t for t, _ in m}
+                             and (b"S", b"M") == (
+                                 dict(m).get("drm_sdc"),
+                                 dict(m).get("drm_msc")))),
+    ]
+
+
+def feed_host_decoder(torch, device, case: dict, channels: int, block: int,
+                      ch: int = 7) -> dict:
+    """Stream a case's signal through its extension on channel ``ch`` of
+    (block, channels) taps on ``device``, a new tap tensor a block as the
+    engine makes them: a real signal in the audio tap, a complex one in
+    the post-AGC IQ tap.  Stops when ``done`` holds (or, with
+    ``feed_all``, at the signal's end).  Returns the messages, the host
+    ms of each block and the index of the block that completed the
+    message (None if none did)."""
+    from flydog_sdr_gps_tpu_torch import extensions as ext_mod
+    from flydog_sdr_gps_tpu_torch.models.rx_channel import RxTaps
+    e = ext_mod.ext_create(case["name"], DecoderEngine(), ch)
+    e.start(**case["params"])
+    for cmd in case.get("commands", ()):
+        e.command(cmd)
+    sig = case["signal"]
+    is_iq = np.iscomplexobj(sig)
+    dev_sig = torch.from_numpy(
+        sig.astype(np.complex64 if is_iq else np.float32)).to(device)
+    unread = torch.zeros((1, 1), dtype=torch.complex64, device=device)
+    smeter = torch.full((channels,), -50.0, device=device)
+    msgs, ms, done_at = [], [], None
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    for i in range(0, len(sig), block):
+        chunk = dev_sig[i:i + block]
+        if is_iq:
+            iq = torch.zeros((block, channels), dtype=torch.complex64,
+                             device=device)
+            iq[:len(chunk), ch] = chunk
+            audio = torch.zeros((block, channels), device=device)
+        else:
+            audio = torch.zeros((block, channels), device=device)
+            audio[:len(chunk), ch] = chunk
+            iq = unread
+        taps = RxTaps(audio=audio, audio2=audio, iq_pre_fir=iq,
+                      iq_post_agc=iq, smeter_dbm=smeter)
+        sync()
+        t0 = time.perf_counter()
+        msgs += e.process_block(taps)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del taps, audio, iq
+        if done_at is None and not case.get("feed_all") \
+                and case["done"](msgs):
+            done_at = len(ms) - 1
+            break
+    if case.get("feed_all") and case["done"](msgs):
+        done_at = len(ms) - 1
+    return dict(msgs=msgs, ms=ms, done_at=done_at)
+
+
+def phase_host_decoders(torch, device, channels: int, block: int,
+                        card: str) -> dict:
+    """Phase 8a: every host-only decoder fed its reference test's signal
+    through (block, channels) device taps; each must decode what that test
+    asserts."""
+    out = {}
+    for case in host_decoder_cases():
+        r = feed_host_decoder(torch, device, case, channels, block)
+        ms = r["ms"]
+        ok = r["done_at"] is not None
+        out[case["name"]] = dict(
+            blocks=len(ms), decoded=ok,
+            host_ms_median=float(np.median(ms)),
+            completing_ms=ms[r["done_at"]] if ok else None)
+        log(f"  {case['name']:<8} {case['what']}: "
+            f"{'decoded' if ok else 'NOT decoded'} in {len(ms)} blocks of "
+            f"({block}, {channels}) taps on {device.type}; host ms a block "
+            f"median {np.median(ms):.3f}, the completing block "
+            f"{ms[r['done_at']] if ok else float('nan'):.3f}  [{card}]")
+        check(ok, f"{case['name']} did not decode {case['what']}: "
+              f"{r['msgs'][:12]}")
+    return out
+
+
+def phase_navtex_server(torch, device, channels: int, block: int,
+                        card: str) -> dict:
+    """Phase 8b: a NAVTEX broadcast through the main path and the server.
+    The scene of phase 5 plus one emitter 1000 Hz above 518 kHz: the
+    source's FSK tone, 120 output samples a symbol (100 Bd at the 12 kHz
+    plan), 170 Hz shift, the bits of ``NAVTEX_TEXT``'s SITOR-B stream,
+    then idle.  One SND client tuned to 518 kHz USB and the NAVTEX
+    extension on its EXT socket, there before the first block; the text
+    must arrive on the EXT socket within ``NAVTEX_BLOCKS`` blocks, with
+    kernels 1, 3 and 4 launched once a block."""
+    import asyncio
+    from flydog_sdr_gps_tpu_torch.extensions import navtex
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    from flydog_sdr_gps_tpu_torch.server import KiwiServer
+    counters = {"stage2_rot": kernels.stage2_rot,
+                "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll}
+    bits = navtex_bits(navtex.encode_text(NAVTEX_TEXT))
+    emitter = (NAVTEX_KHZ * 1e3 + 1000.0, 0.05,
+               ("fsk", 120, 170.0, bits, len(bits) + 200))
+    params = rx.RxParams(num_channels=channels, audio_block=block)
+    src = DeviceSceneSource(tones=SCENE + [emitter], noise_rms=3e-4,
+                            block=params.ddc.adc_block, device=device)
+    eng = StreamEngine(params, src, device=device)
+    server = KiwiServer(eng, realtime=False, port=0)
+    snd, ext = Sock(), Sock()
+    ext_ms: list[float] = []
+    info: dict = {}
+
+    def heard() -> str:
+        return b"".join(p[len(b"EXT chars "):]
+                        for p in ext.of(b"EXT chars ")).decode()
+
+    async def drive():
+        conn = await server.open_stream("navtex", "SND", snd, "127.0.0.1")
+        for cmd in ("SET auth t=kiwi p=",
+                    f"SET mod=usb low_cut=300 high_cut=2700 "
+                    f"freq={NAVTEX_KHZ:.3f}", "SET compression=0"):
+            await conn.handle_set(cmd, "SND")
+        await server.open_stream("navtex", "EXT", ext, "127.0.0.1")
+        await conn.handle_set("SET auth t=kiwi p=", "EXT")
+        await conn.handle_set("SET ext_switch_to_client=NAVTEX center=1000",
+                              "EXT")
+        x = conn.ext
+        check(x is not None and x.name == "NAVTEX",
+              "the NAVTEX extension did not start on the EXT socket")
+        feed = x.process_block
+
+        def timed(taps):
+            t0 = time.perf_counter()
+            msgs = feed(taps)
+            ext_ms.append((time.perf_counter() - t0) * 1e3)
+            return msgs
+        x.process_block = timed
+        check(eng.seq == 0, "a block ran before the server was started")
+        for fn in counters.values():
+            fn.launches = 0
+        server.start_tasks()
+        t0 = time.monotonic()
+        while NAVTEX_TEXT not in heard() and eng.seq < NAVTEX_BLOCKS:
+            await asyncio.sleep(0.002)
+            check(time.monotonic() - t0 < 600.0, "phase 8b timed out")
+        await server.stop()
+        snap = None
+        while snap != (eng.seq, [fn.launches for fn in counters.values()]):
+            # a block's step may still be running on an executor thread
+            snap = (eng.seq, [fn.launches for fn in counters.values()])
+            await asyncio.sleep(0.5)
+        info["launches"] = {k: fn.launches for k, fn in counters.items()}
+        info["blocks"] = eng.seq
+        info["starts"] = list(server.block_started)
+    asyncio.run(drive())
+    text, launches, blocks = heard(), info["launches"], info["blocks"]
+    starts = np.diff(np.asarray(info["starts"])) * 1e3
+    steady = starts[2:]                         # past the first blocks
+    block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
+    factor = float(len(steady) * block_ms / steady.sum())
+    log(f"  the EXT socket heard {text!r} after {blocks} blocks; kernel "
+        f"launches {launches}; realtime factor {factor} over {len(steady)} "
+        f"blocks after 2 (block start to block start, median "
+        f"{np.median(steady):.3f} ms); "
+        f"NAVTEX host ms a block median {np.median(ext_ms):.3f}, max "
+        f"{max(ext_ms):.3f} ({len(ext_ms)} blocks)  [{card}]")
+    check(bool(ext.of(b"EXT ready NAVTEX")), "no EXT ready on the socket")
+    check(NAVTEX_TEXT in text, f"the EXT socket heard {text!r}, not "
+          f"{NAVTEX_TEXT!r}, in {blocks} blocks")
+    for k, n in launches.items():
+        check(n == blocks, f"kernel {k}: {n} launches in {blocks} blocks of "
+              "phase 8b, not one a block")
+    return dict(heard=text, blocks=blocks, launches=launches,
+                realtime_factor=factor, ms_blocks=[float(v) for v in starts],
+                ext_host_ms_median=float(np.median(ext_ms)),
+                ext_host_ms_max=float(max(ext_ms)))
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
@@ -2324,11 +2786,23 @@ def main(argv: list[str]) -> int:
         "row)")
     dec = phase_decoders(torch, device, timer, channels=4096, block=2048,
                          card=card)
+    t8 = time.perf_counter()
+    log("phase 8a: the host-only decoders through (2048, 4096) device taps "
+        "(FSK, NAVTEX, timecode, FAX, SSTV, Loran-C, ALE, STANAG 4285, HFDL, "
+        "DRM)")
+    hdec = phase_host_decoders(torch, device, channels=4096, block=2048,
+                               card=card)
+    log(f"phase 8b: NAVTEX at {NAVTEX_KHZ:.3f} kHz through the main path, "
+        "the server and an EXT client, C=4096, audio_block=2048")
+    nav = phase_navtex_server(torch, device, channels=4096, block=2048,
+                              card=card)
+    log(f"  phase 8 took {time.perf_counter() - t8:.1f} s of wall time")
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
                    server=sr, gps=g, server_gps=srg, slice_20k=s3b,
                    server_autorun={k: v for k, v in sra.items()
                                    if k != "spots"},
                    server_control=srn, decoders=dec,
+                   host_decoders=hdec, navtex_server=nav,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -2343,7 +2817,8 @@ def main(argv: list[str]) -> int:
              "server_autorun": sra["launches"],
              "server_control": srn["launches"],
              "gps": {"gps_track": g["launches"]},
-             "server_gps": srg["launches"]}
+             "server_gps": srg["launches"],
+             "navtex_server": nav["launches"]}
 
     def per_block(name):
         if name == "gps_track":

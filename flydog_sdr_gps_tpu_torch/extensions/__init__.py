@@ -13,10 +13,11 @@ object: ``process_block(taps) -> list of (tag, payload)`` messages for
 its client.  Extensions take either kind of taps: the engine's
 ``RxTaps`` (device tensors) or the server's ``HostTaps`` (host rows of
 the subscribed channels).  The decoders with device work (FFT, wspr,
-FT8, FT4) run their front ends in torch on the engine's device.  The
-registry lists what the port holds so far, in the reference's order; a
-client that asks for any other name gets what it gets for a name that
-was never registered: no reply.
+FT8, FT4, and the waterfall scope over FFT) run their front ends in
+torch on the engine's device; the other decoders are host code that
+reads one column of a tap a block (:mod:`.taps`).  The registry lists
+the reference's extensions in the reference's order; a client that asks
+for a name neither package registers gets no reply.
 """
 
 from __future__ import annotations
@@ -72,6 +73,21 @@ from . import s_meter        # noqa: E402,F401
 from . import iq_display     # noqa: E402,F401
 from . import audio_fft      # noqa: E402,F401
 from . import cw_decoder     # noqa: E402,F401
+from . import sig_gen        # noqa: E402,F401
 from . import wspr           # noqa: E402,F401
 from . import ft8            # noqa: E402,F401
 from . import ft4            # noqa: E402,F401
+from . import tdoa           # noqa: E402,F401
+from . import noise_ui       # noqa: E402,F401
+from . import fsk            # noqa: E402,F401
+from . import navtex         # noqa: E402,F401
+from . import timecode       # noqa: E402,F401
+from . import ibp_scan       # noqa: E402,F401
+from . import fax            # noqa: E402,F401
+from . import misc_ui        # noqa: E402,F401
+from . import sstv           # noqa: E402,F401
+from . import loran_c        # noqa: E402,F401
+from . import ale_2g         # noqa: E402,F401
+from . import s4285          # noqa: E402,F401
+from . import hfdl           # noqa: E402,F401
+from . import drm            # noqa: E402,F401

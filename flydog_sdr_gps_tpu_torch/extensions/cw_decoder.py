@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import Extension, ext_register
+from .taps import host_column
 
 MORSE = {
     ".-": "A", "-...": "B", "-.-.": "C", "-..": "D", ".": "E",
@@ -54,7 +55,7 @@ class CwDecoderExt(Extension):
         return self.fs * 1.2 / self.wpm
 
     def process_block(self, taps) -> list:
-        audio = np.asarray(taps.audio[:, self.rx_chan], np.float64)
+        audio = host_column(taps.audio, self.rx_chan, np.float64)
         out = []
         n = len(audio)
         t = np.arange(n) / self.fs

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import Extension, ext_register
+from .taps import host_iq
 
 
 @ext_register
@@ -20,8 +21,7 @@ class IQDisplayExt(Extension):
 
     def process_block(self, taps) -> list:
         ch = self.rx_chan
-        re = np.asarray(taps.iq_post_agc.re[:, ch])
-        im = np.asarray(taps.iq_post_agc.im[:, ch])
+        re, im = host_iq(taps.iq_post_agc, ch)
         step = max(1, len(re) // self.points)
         pts = np.stack([re[::step], im[::step]], axis=1).astype("<f4")
         return [("iq", pts.tobytes())]

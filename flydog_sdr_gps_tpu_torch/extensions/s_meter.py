@@ -8,9 +8,8 @@ from __future__ import annotations
 
 import struct
 
-import numpy as np
-
 from . import Extension, ext_register
+from .taps import host_smeter
 
 
 @ext_register
@@ -25,5 +24,5 @@ class SMeterExt(Extension):
         self._n += 1
         if self._n % max(self.decimate, 1):
             return []
-        dbm = float(np.asarray(taps.smeter_dbm[self.rx_chan]))
+        dbm = host_smeter(taps.smeter_dbm, self.rx_chan)
         return [("smeter", struct.pack("<f", dbm))]

@@ -14,8 +14,9 @@ oscillator off by ``--gps-ppm``): on the card the sky is synthesized
 there in 0.4 s chunks, with ``--cpu`` on the host in 0.1 s chunks, paced
 at real time; its fixes discipline the clock that tunes every channel.
 ``--autorun wspr:7038.6 --autorun FT8:14074`` (repeatable) runs
-background decoders on idle channels, which yield to listeners; a spec
-naming an extension the port does not hold ends with an error.
+background decoders on idle channels, which yield to listeners; it takes
+every extension name the reference registers (``NAVTEX:518`` too), and a
+spec naming an unknown extension ends with an error.
 ``--mesh`` is the flag of a part that is not ported yet and ends with
 an error that says so.
 """

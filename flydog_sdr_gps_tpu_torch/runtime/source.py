@@ -242,9 +242,9 @@ class DeviceSceneSource:
     WSPR): the transmission repeats every ``cycle_syms`` symbol periods;
     symbols beyond ``len(symbols)`` are idle (carrier off).  Tone n sits
     at ``freq_hz + (symbols[n] - (M-1)/2) * tone_spacing_hz``.  The
-    symbol clock is exact integer ticks, and a symbol boundary lands
-    mid-block at its exact sample (at most one a block: one symbol
-    period is >= 85M ADC ticks, far longer than any block).
+    symbol clock is exact integer ticks, and each symbol boundary lands
+    at its exact sample, however many fall in one block (a 100 Bd
+    NAVTEX emitter has 17 in a 2048-sample block).
     """
 
     def __init__(self, tones=(), noise_rms: float = 0.0,
@@ -295,31 +295,30 @@ class DeviceSceneSource:
         return nco.to_cycles(self._ramp(self._phis[i], self._fcws[i],
                                         self._n))
 
-    def _fsk_block_args(self, st: dict) -> tuple:
-        """Host-side FSK symbol clock for one block: the phase word at
-        the block's start and at the symbol boundary, the tone words and
-        amplitudes before and after it, and the boundary's sample
-        (``self.block`` if none falls in this block).  Advances the
-        transmitter's phase carry."""
+    def _fsk_segments(self, st: dict) -> tuple:
+        """Host-side FSK symbol clock for one block: for each stretch of
+        the block that one symbol covers, its first sample, the phase
+        word there, its tone word and its amplitude (0 while idle).
+        Advances the transmitter's phase carry."""
         t0 = self.ticks
         sym_ticks, cycle = st["sym_ticks"], st["cycle"]
         n_tx = len(st["syms"])
-
-        def sym_of(tick):
-            s = (tick // sym_ticks) % cycle
-            return st["syms"][s] if s < n_tx else None
-        s_a = sym_of(t0)
-        b = ((t0 // sym_ticks) + 1) * sym_ticks    # next boundary
-        brk = b - t0 if b - t0 < self.block else self.block
-        s_b = sym_of(b) if brk < self.block else s_a
-        fcw_a = st["fcws"][s_a if s_a is not None else 0]
-        fcw_b = st["fcws"][s_b if s_b is not None else 0]
-        phi0 = st["phi"]
-        phi_brk = (phi0 + fcw_a * brk) % (1 << 48)
-        st["phi"] = (phi_brk + fcw_b * (self.block - brk)) % (1 << 48)
-        return (phi0, phi_brk, fcw_a, fcw_b, brk,
-                st["amp"] if s_a is not None else 0.0,
-                st["amp"] if s_b is not None else 0.0)
+        starts, phis, fcws, amps = [], [], [], []
+        phi, at = st["phi"], 0
+        while at < self.block:
+            k = (t0 + at) // sym_ticks
+            s = k % cycle
+            sym = st["syms"][s] if s < n_tx else None
+            end = min((k + 1) * sym_ticks - t0, self.block)
+            fcw = st["fcws"][sym if sym is not None else 0]
+            starts.append(at)
+            phis.append(phi)
+            fcws.append(fcw)
+            amps.append(st["amp"] if sym is not None else 0.0)
+            phi = (phi + fcw * (end - at)) % (1 << 48)
+            at = end
+        st["phi"] = phi
+        return starts, phis, fcws, amps
 
     def fsk_cycle_pos_s(self, idx: int = 0) -> tuple[float, float]:
         """(seconds into the FSK cycle, cycle length in seconds) at the
@@ -340,19 +339,18 @@ class DeviceSceneSource:
                 mi, depth = mod
                 carrier *= 1.0 + depth * torch.sin(two_pi * self._cycles(mi))
             x += amp * carrier
-        # FSK tones: the ramp of the tone before the symbol boundary up
-        # to sample brk, the ramp of the tone after it (restarted at the
-        # boundary's carried phase) from there on
+        # FSK tones: each symbol's stretch of the block is the ramp of its
+        # tone, restarted at the phase carried to the stretch's start
         for st in self._fsk:
-            phi0, phi_brk, fcw_a, fcw_b, brk, amp_a, amp_b = \
-                self._fsk_block_args(st)
-            before = self._n < brk
-            words = torch.where(
-                before, self._ramp(phi0, fcw_a, self._n),
-                self._ramp(phi_brk, fcw_b,
-                           torch.clamp(self._n - brk, min=0)))
-            ampv = torch.where(before, amp_a, amp_b)
-            x += ampv * torch.cos(two_pi * nco.to_cycles(words))
+            starts, phis, fcws, amps = (
+                torch.tensor(v, dtype=dt, device=self.device)
+                for v, dt in zip(self._fsk_segments(st),
+                                 (torch.int64, torch.int64, torch.int64,
+                                  torch.float32)))
+            seg = torch.searchsorted(starts, self._n, right=True) - 1
+            words = (phis[seg] + nco.mul_mod48(self._n - starts[seg],
+                                               fcws[seg])) & nco.MASK48
+            x += amps[seg] * torch.cos(two_pi * nco.to_cycles(words))
         if self.noise_rms:
             x += self.noise_rms * torch.randn(
                 self.block, generator=self._gen, device=self.device)

@@ -54,9 +54,13 @@ def test_parse_spec():
         parse_spec("nosuch:123")
     with pytest.raises(ValueError):
         parse_spec("ft8/ft4:1/2/3")
-    # an extension the port does not hold yet is refused by name
-    with pytest.raises(ValueError, match="navtex"):
-        parse_spec("navtex:518")
+    # a name neither package registers is refused by name; every name the
+    # reference registers is taken, in any case, as the reference takes it
+    with pytest.raises(ValueError, match="nosuch"):
+        parse_spec("nosuch:518")
+    assert parse_spec("NAVTEX:518") == [("NAVTEX", 518.0)] == \
+        jautorun.parse_spec("NAVTEX:518")
+    assert parse_spec("navtex:518") == jautorun.parse_spec("navtex:518")
 
 
 async def _wait(cond, what, timeout=120.0):

@@ -719,3 +719,41 @@ def test_rx3_engine_on_card_matches_cpu(card):
             tol = 2e-4 * float(want.abs().max()) + 5e-5
             assert float((got.audio[:, :2].cpu() - want).abs().max()) \
                 <= tol, blk
+
+
+@pytest.mark.parametrize("name", ["S_meter", "IQ_display", "CW_decoder"])
+def test_extensions_read_cuda_taps(card, name):
+    """Extensions that read one column of a tap (``extensions/taps.py``)
+    give on the card's taps, at the main path's (2048, 4096), the
+    messages they give on the same taps on the CPU; three blocks, a new
+    tap tensor each, channel 1234 keyed with a 500 Hz tone (the CW
+    decoder's pitch)."""
+    import types
+    from flydog_sdr_gps_tpu_torch import extensions as ext_mod
+    eng = types.SimpleNamespace(params=types.SimpleNamespace(fs_out=12000.0))
+    rng = np.random.default_rng(29)
+    B, C, ch = 2048, 4096, 1234
+    t = np.arange(3 * B) / 12000.0
+    key = (np.arange(3 * B) // 1200) % 2
+    msgs = {}
+    for dev in ("cpu", card):
+        rng = np.random.default_rng(29)
+        e = ext_mod.ext_create(name, eng, ch)
+        e.start()
+        out = []
+        for k in range(3):
+            audio = 0.05 * rng.standard_normal((B, C)).astype(np.float32)
+            sl = slice(k * B, (k + 1) * B)
+            audio[:, ch] += (0.5 * key[sl] * np.sin(2 * np.pi * 500.0 * t[sl])
+                             ).astype(np.float32)
+            iq = (rng.standard_normal((B, C))
+                  + 1j * rng.standard_normal((B, C))).astype(np.complex64)
+            smeter = rng.uniform(-120.0, -20.0, C).astype(np.float32)
+            a = torch.from_numpy(audio).to(dev)
+            z = torch.from_numpy(iq).to(dev)
+            taps = rx.RxTaps(audio=a, audio2=a, iq_pre_fir=z, iq_post_agc=z,
+                             smeter_dbm=torch.from_numpy(smeter).to(dev))
+            out.append(e.process_block(taps))
+        msgs[str(dev)] = out
+    assert msgs[str(card)] == msgs["cpu"]
+    assert name == "CW_decoder" or all(msgs["cpu"])

@@ -139,9 +139,13 @@ def _same_results(ref, port):
 
 def test_registry_follows_the_reference_order():
     ported = list(text._registry)
-    assert ported == ["S_meter", "IQ_display", "FFT", "CW_decoder", "wspr",
-                      "FT8", "FT4"]
-    assert ported == [n for n in jext._registry if n in ported]
+    assert ported == [
+        "S_meter", "IQ_display", "FFT", "CW_decoder", "sig_gen", "wspr",
+        "FT8", "FT4", "TDoA", "noise_blank", "noise_filter", "FSK", "NAVTEX",
+        "timecode", "IBP_scan", "FAX", "colormap", "iframe", "prefs",
+        "example", "devl", "waterfall", "digi_modes", "SSTV", "Loran_C",
+        "ALE_2G", "s4285", "HFDL", "DRM"]
+    assert ported == list(jext._registry)
 
 
 # -- the device front ends ------------------------------------------------------

@@ -300,15 +300,15 @@ FSK = ("fsk", 20, 1.4648, [0, 3, 1], 5)         # 2.5 blocks a symbol
 FSK_BLOCK = 8 * RX_DECIM_12K
 
 
-def _fsk_truth(f0, amp, nblocks):
+def _fsk_truth(f0, amp, nblocks, fsk=FSK, block=FSK_BLOCK):
     """The FSK tone in float64 from per-sample exact phase words."""
-    _, baud, df, syms, cycle = FSK
+    _, baud, df, syms, cycle = fsk
     sym_ticks = baud * RX_DECIM_12K
     m = max(syms) + 1
     fcws = np.array([jnco.freq_to_fcw(f0 + (s - (m - 1) / 2.0) * df,
                                       ADC_CLOCK_NOM) for s in range(m)],
                     np.uint64)
-    tick = np.arange(nblocks * FSK_BLOCK)
+    tick = np.arange(nblocks * block)
     slot = (tick // sym_ticks) % cycle
     on = slot < len(syms)
     sym = np.where(on, np.asarray(syms + [0] * cycle)[slot], 0)
@@ -352,6 +352,23 @@ def test_fsk_scene_matches_truth_and_reference():
     assert got.ticks == ref.ticks == nblocks * FSK_BLOCK
     pos, cyc = got.fsk_cycle_pos_s()
     assert cyc == 5 * 20 * RX_DECIM_12K / ADC_CLOCK_NOM and 0 <= pos < cyc
+
+
+def test_fsk_scene_with_many_symbols_a_block_matches_truth():
+    """Symbols shorter than a block (a NAVTEX emitter: 120 output samples
+    a symbol, 17 boundaries in a 2048-sample block): every boundary lands
+    at its exact sample, the phase carried across each.  Here 3 samples a
+    symbol in blocks of 8, 2-3 boundaries a block, with idle slots."""
+    fsk = ("fsk", 3, 170.0, [1, 0, 1, 1, 0, 0, 1, 0, 1, 1], 13)
+    src = tsource.DeviceSceneSource(tones=[(518.0e3 + 1000.0, 0.05, fsk)],
+                                    block=FSK_BLOCK, device="cpu")
+    nblocks = 12                                    # past two cycles
+    truth = _fsk_truth(518.0e3 + 1000.0, 0.05, nblocks, fsk, FSK_BLOCK)
+    got = np.concatenate([src.next_block().numpy() for _ in range(nblocks)])
+    np.testing.assert_allclose(got, truth, rtol=0, atol=1e-7)
+    sym_ticks = 3 * RX_DECIM_12K
+    assert FSK_BLOCK // sym_ticks >= 2 and (nblocks * FSK_BLOCK) // (
+        sym_ticks * 13) >= 2
 
 
 def test_serving_entry_points_exist_with_the_reference_names():

@@ -601,15 +601,27 @@ def test_pipeline_deeper_than_the_fetch_buffers_is_refused():
 
 
 @pytest.mark.parametrize("kw,word", [
-    (dict(autorun=["navtex:518"]), "autorun")])
+    (dict(autorun=["nosuch:518"]), "autorun")])
 def test_unported_parts_are_refused_by_name(kw, word):
-    """Autorun runs (``test_torch_autorun.py``); a unit of a decoder the
-    port does not hold yet (navtex waits for the host-only decoders) is
-    refused, naming it."""
+    """Autorun runs (``test_torch_autorun.py``); a unit of a decoder that
+    neither package registers is refused, naming it."""
     eng = _port_server().engine
     with pytest.raises(ValueError,
-                       match=f"{word}: unknown extension 'navtex'"):
+                       match=f"{word}: unknown extension 'nosuch'"):
         tks.KiwiServer(eng, **kw)
+
+
+def test_every_reference_extension_is_taken_by_autorun():
+    """Every name the reference registers (the host-only decoders too) is
+    an autorun unit of the server and of ``run_server --autorun``, as in
+    the reference."""
+    eng = _port_server().engine
+    server = tks.KiwiServer(eng, autorun=["NAVTEX:518", "navtex:490"])
+    assert [u.slots for u in server.autorun.units] == \
+        [[("NAVTEX", 518.0)], [("NAVTEX", 490.0)]]
+    for name in ("NAVTEX", "DRM", "HFDL", "timecode"):
+        args = run_server.parse_args(["--autorun", f"{name}:518"])
+        assert args.autorun == [f"{name}:518"]
 
 
 def test_engine_without_gather_is_refused():
@@ -621,7 +633,7 @@ def test_engine_without_gather_is_refused():
 
 @pytest.mark.parametrize("flag,word", [
     (["--mesh", "time=2,chan=2"], "multi-device"),
-    (["--autorun", "navtex:518"], "autorun")])
+    (["--autorun", "nosuch:518"], "autorun")])
 def test_run_server_refuses_unported_flags(flag, word, capsys):
     with pytest.raises(SystemExit) as e:
         run_server.parse_args(flag)

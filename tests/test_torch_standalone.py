@@ -11,7 +11,9 @@ originals.
   from that block, then a ``KiwiServer`` that serves a listener two
   blocks, then a GPS cold search and a chunk of tracking on the
   device-path sky, then the decoders' front ends on a short capture
-  and a server whose autorun units claim idle channels;
+  and a server whose autorun units claim idle channels, then the
+  host-only decoders fed ``chip_smoke.py`` phase 8a's signals through
+  the engine's kind of taps;
 - a source scan finds no ``import``/``from`` of either in the port's
   package or ``chip_smoke.py``;
 - every public constant of ``numerology`` is equal, and the filter
@@ -66,7 +68,7 @@ def test_port_runs_without_jax_and_reference_package():
             port.__path__, port.__name__ + ".")]
         for name in names:
             importlib.import_module(name)
-        assert len(names) >= 49, names
+        assert len(names) >= 80, names
         for wanted in ("models.waterfall", "server.wf_service",
                        "ops.windows", "server.kiwi_server", "server.webui",
                        "server.services", "server.netproto", "run_server",
@@ -83,7 +85,16 @@ def test_port_runs_without_jax_and_reference_package():
                        "extensions.ft8", "extensions.ft8_decode",
                        "extensions.ft8_ldpc_tables", "extensions.ft4",
                        "extensions.spot_upload", "extensions.capture",
-                       "server.autorun"):
+                       "server.autorun", "extensions.taps",
+                       "extensions.fsk", "extensions.misc_ui",
+                       "extensions.noise_ui", "extensions.sig_gen",
+                       "extensions.tdoa", "extensions.navtex",
+                       "extensions.timecode", "extensions.ibp_scan",
+                       "extensions.fax", "extensions.sstv",
+                       "extensions.loran_c", "extensions.ale_2g",
+                       "extensions.s4285", "extensions.hfdl",
+                       "extensions.drm_tables", "extensions.drm_mlc",
+                       "extensions.drm", "extensions.drm_audio"):
             assert f"{port.__name__}.{wanted}" in names, wanted
 
         from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -183,6 +194,13 @@ def test_port_runs_without_jax_and_reference_package():
                 await asyncio.sleep(0.01)
             await server.stop()
         asyncio.run(autorun())
+
+        # the host-only decoders: chip_smoke.py phase 8a's cases through
+        # the engine's kind of taps, on the CPU
+        import chip_smoke
+        dec = chip_smoke.phase_host_decoders(
+            torch, torch.device("cpu"), channels=8, block=2048, card="cpu")
+        assert len(dec) == 10 and all(r["decoded"] for r in dec.values())
         assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
         print("STANDALONE-OK")
     """)
