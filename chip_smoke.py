@@ -145,6 +145,34 @@ What it does, in order (any failed check raises; exit code != 0):
    block; prints the launch counts, the server's realtime factor over
    those blocks and the extension's host ms a block.
 
+9a. The multi-device engine: a ``ShardedStreamEngine`` over a (2, 2)
+   (time, chan) mesh of the one card repeated, at C=4096,
+   audio_block=2048, on phase 3's scene and tuning, 8 blocks with a SET
+   (channel 1 to LSB on 14.2036 MHz) before the 4th and the GPS clock's
+   ``retune_all`` (+0.4 ppm) before the 6th; then the unfused
+   single-device engine on the same blocks and events.  Checks: iq within
+   1e-5, audio within 3e-3, S-meter within 0.1 dB of it (the reference's
+   bounds, ``tests/test_parallel.py``); kernels 2, 3 and 4 launched four
+   times a block (once a shard), 1, 5 and 7 not at all; the AM lane hears
+   1000 Hz and the retuned LSB lane 1800 Hz.  Prints the block times and
+   realtime factor beside phase 3's, the peak memory and one SET's ms;
+   with ``--profile`` the summed kernel time and kernel count of one mesh
+   block and of one fused single-device block.
+9b. A ``KiwiServer`` over such a mesh engine (the non-fused serving
+   branch): four SND listeners (USB on 14200.00 kHz, which must hear the
+   14.2018 MHz tone at 1800 +- 40 Hz, AM, LSB, IQ) and one W/F socket,
+   whose z0 row must peak on the carriers; kernels 2, 3, 4 four times a
+   block; no bucket prewarmed.  Then ``run_server --mesh time=1,chan=1``
+   must build on the card, and ``--mesh time=2,chan=2`` on a host without
+   four cards must end naming the card count.
+9c. Stage 2 by FFT correlation: ``RxParams(stage2="fft")``'s slice
+   within 1e-4 of the unfused slice (kernel 2) on 2 blocks; phase 2's
+   tone through the FFT method at >= 80 dB SINAD.  (Phase 1 times
+   ``channelizer.stage2_fft`` as a second library call in kernel 2's row,
+   with the memory it takes.)
+9d. ``noise.lms_block`` in both modes through kernel 5 at (2048, 4096),
+   within 1e-4 of the output's scale of its plain version.
+
 Kernel 7's launch count is read around phases 3 to 6b and must be one a
 block in 4, 5 and 6b, where a lane has spectral NR on.  ``--profile``
 also prints kernel 6's clock64 split of an epoch (``csrc/gps_track.cu``
@@ -381,6 +409,8 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
                 if kname == "stage2":
                     out[kname].update(conv1d_library_ms(
                         torch, timer, y, h2, d2, k2, ref))
+                    out[kname].update(stage2_fft_library(
+                        torch, timer, plan, y, ref))
             del got, ref
         del y
 
@@ -390,6 +420,32 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
     stage2_case(plan20, c_main, f"20.25k C={c_main}", False)
     for c in small_cs:
         stage2_case(plan12, c, f"12k C={c}", False)
+
+    # phase 9's shapes: a MESH shard gives kernel 2 k1/T + tail2 rows of
+    # C/K channels (an odd row count), kernels 3 and 4 a block of C/(T*K)
+    # channels; held to the bounds above
+    t_sz, k_sz = MESH
+    c_grp = c_main // (t_sz * k_sz)
+
+    def mesh_shard(kname, shape, err, bound):
+        log(f"  {kname:<10} mesh shard {tuple(shape)} max|err| {err:.3e} "
+            f"(bound {bound:.3e})")
+        check(err <= bound, f"{kname} mesh shard {tuple(shape)}: {err} > "
+              f"{bound}")
+        out[kname]["mesh_shard"] = dict(shape=list(shape), max_abs_err=err,
+                                        bound=bound)
+
+    y = torch.complex(
+        torch.randn((plan12.k1 // t_sz + plan12.tail2, c_main // k_sz),
+                    generator=gen, device=device),
+        torch.randn((plan12.k1 // t_sz + plan12.tail2, c_main // k_sz),
+                    generator=gen, device=device))
+    k2 = plan12.audio_block // t_sz
+    got = kernels.stage2(y, plan12.h2, plan12.d2, k2)
+    ref = kernels.stage2_plain(y, plan12.h2, plan12.d2, k2)
+    check(tuple(got.shape) == (k2, c_main // k_sz), "stage2 mesh shard shape")
+    mesh_shard("stage2", y.shape, max_err(got, ref)[0], 1e-4)
+    del y, got, ref
 
     # kernel 3: AGC envelope on a realistic spread of levels
     params = agc.AgcParams(fs=plan12.fs_out)
@@ -415,6 +471,15 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
         plain_ms=timer(plain, reps=1), library_ms=None,
         **roofline(2 * mag_db.numel() * 4 + 4 * c_main * 4,
                 8.0 * mag_db.numel()))
+    part = mag_db[:, :c_grp].contiguous()
+    (g_seq, g_env, g_hang), (r_seq, r_env, r_hang) = (
+        agc.envelope_scan(params, part, env0[:c_grp], hang0[:c_grp]),
+        agc.envelope_scan_plain(params, part, env0[:c_grp], hang0[:c_grp]))
+    err, scale = max_err(g_seq, r_seq)
+    check(max_err(g_env, r_env)[0] <= 1e-4 * scale
+          and bool(torch.equal(g_hang, r_hang)), "agc mesh shard state")
+    mesh_shard("agc_envelope", part.shape, err, 1e-4 * scale)
+    del part, g_seq, r_seq
 
     # kernel 4: SAM PLL on AM carriers with offsets, plus noise
     sam = demod.SamParams(fs=plan12.fs_out)
@@ -465,7 +530,17 @@ def phase_kernels(torch, device, timer, c_main: int, block: int,
         plain_ms=timer(plain, reps=1), library_ms=None,
         ms_ordinary_lanes=ms_ordinary,
         **roofline(2 * z.numel() * 8 + 4 * c_main * 4, 19.0 * z.numel()))
-    del z, g_v, r_v
+    part = z[:, :c_grp].contiguous()      # the special lanes lie in it
+    (g_v, g_ph, g_fr), (r_v, r_ph, r_fr) = (
+        demod.sam_pll(sam, part, ph0[:c_grp], fr0[:c_grp]),
+        demod.sam_pll_plain(sam, part, ph0[:c_grp], fr0[:c_grp]))
+    err, scale = max_err_finite(torch, g_v, r_v, "sam pll v, mesh shard")
+    check(max_err_finite(torch, g_fr, r_fr, "sam freq, mesh shard")[0]
+          <= 1e-4 * float(sam.fmax)
+          and max_err_finite(torch, g_ph, r_ph, "sam phase, mesh shard")[0]
+          <= 1e-4 * math.pi, "sam pll mesh shard state")
+    mesh_shard("sam_pll", part.shape, err, 1e-4 * scale)
+    del z, part, g_v, r_v
 
     # kernel 5: the LMS notch -> denoiser chain on tones in noise, every
     # combination of enables side by side (channel % 4: both, notch only,
@@ -669,14 +744,19 @@ def dominant_hz(audio: np.ndarray, fs: float) -> float:
 
 def make_engine(torch, device, channels: int, block: int, stage2: str):
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
-    from flydog_sdr_gps_tpu_torch.ops import demod
     from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
                                                   StreamEngine)
     params = rx.RxParams(num_channels=channels, audio_block=block,
                          stage2=stage2)
     src = DeviceSceneSource(tones=SCENE, noise_rms=3e-4,
                             block=params.ddc.adc_block, device=device)
-    eng = StreamEngine(params, src, device=device)
+    return tune_slice(StreamEngine(params, src, device=device))
+
+
+def tune_slice(eng):
+    """Phase 3's tuning: AM on 7.100 MHz, USB on 14.200 MHz, four USB
+    lanes on empty spectrum."""
+    from flydog_sdr_gps_tpu_torch.ops import demod
     eng.set_channel(0, freq_hz=7.100e6, mode=demod.MODE_AM, in_use=True)
     eng.set_channel(1, freq_hz=14.200e6, mode=demod.MODE_USB, in_use=True)
     for i, f in enumerate(EMPTY_FREQS):
@@ -2598,6 +2678,382 @@ def phase_navtex_server(torch, device, channels: int, block: int,
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 9: the multi-device engine, the stage-2 FFT method, lms_block
+# ---------------------------------------------------------------------------
+
+MESH = (2, 2)                   # (time, chan), every shard on the one card
+MESH_BLOCKS = 8                 # a SET before block 3, retune_all before 5
+MESH_SERVER_BLOCKS = 12
+
+
+def kernel_counters():
+    from flydog_sdr_gps_tpu_torch.ops import agc, demod, kernels, noise
+    return {"stage2_rot": kernels.stage2_rot, "stage2": kernels.stage2,
+            "agc_envelope": agc.envelope_scan, "sam_pll": demod.sam_pll,
+            "lms_chain": noise.lms_chain_block,
+            "spectral_nr": noise.spectral_nr_gains}
+
+
+def make_mesh_engine(torch, device, channels: int, block: int, scene=None):
+    """A ``ShardedStreamEngine`` over a MESH of ``device`` repeated, fed by
+    phase 3's scene on the card."""
+    from flydog_sdr_gps_tpu_torch import parallel
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  ShardedStreamEngine)
+    params = rx.RxParams(num_channels=channels, audio_block=block)
+    src = DeviceSceneSource(tones=scene or SCENE, noise_rms=3e-4,
+                            block=params.ddc.adc_block, device=device)
+    mesh = parallel.make_mesh(*MESH, devices=[device] * (MESH[0] * MESH[1]))
+    return ShardedStreamEngine(params, src, mesh=mesh)
+
+
+def mesh_events(torch, eng, b: int) -> float | None:
+    """The control-plane events of phase 9a, before block ``b``: a SET
+    (channel 1 to LSB on 14.2036 MHz, where the 14.2018 MHz tone is 1800
+    Hz below) before block 3, the GPS clock's retune_all (+0.4 ppm) before
+    block 5.  Returns the SET's wall ms (synchronized), else None."""
+    from flydog_sdr_gps_tpu_torch.ops import demod
+    if b == 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.set_channel(1, freq_hz=14.2036e6, mode=demod.MODE_LSB,
+                        passband=(-2700.0, -300.0))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    if b == 5:
+        eng.retune_all(eng.params.adc_clock * (1 + 0.4e-6))
+    return None
+
+
+def device_profile(torch, eng) -> dict:
+    """One block (after one more) under torch.profiler: the summed time
+    of the kernels that ran on the card and how many there were."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng.run_block()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run_block()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return dict(device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+                device_ops=sum(e.count for e in dev))
+
+
+def phase_mesh(torch, device, channels: int, block: int,
+               profile: bool = False) -> dict:
+    """9a: the mesh engine against the unfused single-device engine on the
+    same blocks (the reference's bounds, ``tests/test_parallel.py``).
+    With ``profile``, one block of a new mesh engine and one of the fused
+    single-device engine under torch.profiler, after the counts."""
+    counters = kernel_counters()
+    eng = tune_slice(make_mesh_engine(torch, device, channels, block))
+    n_dev = MESH[0] * MESH[1]
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0                     # the mesh path's run starts
+    ms, kept, set_ms = [], [], None
+    for b in range(MESH_BLOCKS):
+        set_ms = mesh_events(torch, eng, b) or set_ms
+        t0 = time.perf_counter()
+        taps = eng.run_block()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        kept.append((taps.audio, taps.iq_pre_fir, taps.smeter_dbm))
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9   # the run ends
+    block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
+    shape = dict(eng.mesh.shape)
+    fs = eng.params.fs_out
+    del eng, taps
+    ref = make_engine(torch, device, channels, block, "unfused")
+    err = dict(iq=0.0, audio=0.0, smeter=0.0)
+    for b in range(MESH_BLOCKS):
+        mesh_events(torch, ref, b)
+        want = ref.run_block()
+        audio, iq, sm = kept[b]
+        for name, got, w in (("iq", iq, want.iq_pre_fir),
+                             ("audio", audio, want.audio),
+                             ("smeter", sm, want.smeter_dbm)):
+            check(bool(torch.isfinite(got).all()), f"mesh {name} not finite")
+            err[name] = max(err[name], float((got - w).abs().max()))
+    lanes = torch.cat([a[:, :2] for a, _, _ in kept[3:]]).cpu().numpy()
+    del ref, want, kept
+    log(f"  mesh {shape} over {n_dev} x {device}: launches {launches} in "
+        f"{MESH_BLOCKS} blocks; max |mesh - unfused engine|: iq "
+        f"{err['iq']:.3e} (bound 1e-5), audio {err['audio']:.3e} (bound "
+        f"3e-3), S-meter {err['smeter']:.3e} dB (bound 0.1)")
+    check(err["iq"] <= 1e-5, f"mesh iq_pre_fir: {err['iq']}")
+    check(err["audio"] <= 3e-3, f"mesh audio: {err['audio']}")
+    check(err["smeter"] <= 0.1, f"mesh S-meter: {err['smeter']}")
+    for k in ("stage2", "agc_envelope", "sam_pll"):
+        check(launches[k] == n_dev * MESH_BLOCKS, f"kernel {k}: "
+              f"{launches[k]} launches in {MESH_BLOCKS} mesh blocks, not "
+              f"{n_dev} a block")
+    for k in ("stage2_rot", "lms_chain", "spectral_nr"):
+        check(launches[k] == 0, f"kernel {k} ran on the mesh path")
+    f_am, f_lsb = (dominant_hz(lanes[:, i], fs) for i in (0, 1))
+    log(f"  after the SET: AM hears {f_am:.1f} Hz, LSB 14.2036 MHz hears "
+        f"{f_lsb:.1f} Hz")
+    check(abs(f_am - 1000.0) <= 20 and abs(f_lsb - 1800.0) <= 20,
+          f"mesh lanes hear {f_am}, {f_lsb}")
+    steady = ms[2:]
+    prof = None
+    if profile:
+        eng = tune_slice(make_mesh_engine(torch, device, channels, block))
+        prof = {"mesh": device_profile(torch, eng)}
+        del eng
+        prof["one device, fused"] = device_profile(
+            torch, make_engine(torch, device, channels, block, "fused"))
+        log(f"  one profiled block's kernels on the card: {prof}")
+    return dict(mesh=shape, devices=n_dev, launches=launches, profile=prof,
+                launches_per_block={k: v / MESH_BLOCKS
+                                    for k, v in launches.items()},
+                blocks=MESH_BLOCKS, ms_blocks=ms,
+                ms_median=statistics.median(steady), ms_min=min(steady),
+                ms_max=max(steady),
+                realtime_factor=len(steady) * block_ms / sum(steady),
+                peak_mem_gb=peak_gb, base_mem_gb=base_gb, set_ms=set_ms,
+                max_err=err,
+                heard_hz=[f_am, f_lsb])
+
+
+def phase_mesh_server(torch, device, channels: int, block: int,
+                      nblocks: int = MESH_SERVER_BLOCKS) -> dict:
+    """9b: a ``KiwiServer`` over a mesh engine (the non-fused serving
+    branch): four SND listeners and one W/F socket over in-process
+    sockets; then ``run_server --mesh`` built on the card."""
+    import asyncio
+    from flydog_sdr_gps_tpu_torch import run_server
+    from flydog_sdr_gps_tpu_torch.numerology import UI_SRATE_30M, WF_OUT_PX
+    from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
+    from flydog_sdr_gps_tpu_torch.server import KiwiServer
+    counters = kernel_counters()
+    eng = make_mesh_engine(torch, device, channels, block)
+    check(eng.run_block_gather is None, "the mesh engine has a fused path")
+    server = KiwiServer(eng, realtime=False, port=0)
+    auth = "SET auth t=kiwi p="
+    script = [
+        ("usb 14200.00", [auth, "SET mod=usb low_cut=300 high_cut=2700 "
+                          "freq=14200.00", "SET compression=0"]),
+        ("am adpcm", [auth, "SET mod=am low_cut=-4000 high_cut=4000 "
+                      "freq=7100.000", "SET compression=1"]),
+        ("lsb 14203.6", [auth, "SET mod=lsb low_cut=-2700 high_cut=-300 "
+                         "freq=14203.600", "SET compression=0"]),
+        ("iq", [auth, "SET mod=iq low_cut=-5000 high_cut=5000 "
+                "freq=14200.000"]),
+    ]
+    snd = {i: Sock() for i in range(len(script))}
+    wf = Sock()
+
+    async def drive():
+        for i, (_what, cmds) in enumerate(script):
+            conn = await server.open_stream(f"m{i}", "SND", snd[i],
+                                            "127.0.0.1")
+            for cmd in cmds:
+                await conn.handle_set(cmd, "SND")
+        conn = await server.open_stream("m0", "W/F", wf, "127.0.0.1")
+        for cmd in (auth, "SET zoom=0 start=0", "SET wf_speed=4"):
+            await conn.handle_set(cmd, "W/F")
+        check(eng.seq == 0, "a block ran before the server was started")
+        for fn in counters.values():
+            fn.launches = 0                 # the mesh server's run starts
+        server.start_tasks()
+        t0 = time.monotonic()
+        while min(len(s.of(b"SND")) for s in snd.values()) < nblocks:
+            await asyncio.sleep(0.002)
+            check(time.monotonic() - t0 < 300, "the mesh server stalled")
+        blocks = eng.seq
+        launches = {k: fn.launches for k, fn in counters.items()}
+        await server.stop()
+        await asyncio.sleep(0.05)
+        return blocks, launches
+    blocks, launches = asyncio.run(drive())
+    check(server._warm_buckets == set(), "a bucket was prewarmed")
+    n_dev = MESH[0] * MESH[1]
+    for k in ("stage2", "agc_envelope", "sam_pll"):
+        check(launches[k] == n_dev * blocks, f"kernel {k}: {launches[k]} "
+              f"launches in {blocks} blocks of the mesh server")
+    check(launches["stage2_rot"] == 0, "the mesh server ran kernel 1")
+    fs = eng.params.fs_out
+    heard = {}
+    for i in (0, 1, 2):
+        pkts = [parse_snd(p) for p in snd[i].of(b"SND")]
+        check([p[1] for p in pkts] == list(range(len(pkts))),
+              f"mesh listener {i}: sequence numbers")
+        a = snd_audio(snd[i])
+        check(bool(np.isfinite(a).all()), f"mesh listener {i}: audio")
+        heard[script[i][0]] = dominant_hz(a[len(a) // 4:], fs)
+    log(f"  mesh server: {blocks} blocks, launches {launches}; heard, Hz: "
+        f"{heard}")
+    check(abs(heard["usb 14200.00"] - 1800.0) <= 40,
+          f"USB 14200.00 hears {heard['usb 14200.00']} Hz, not 1800 +- 40")
+    check(abs(heard["am adpcm"] - 1000.0) <= 40, "the AM lane")
+    check(abs(heard["lsb 14203.6"] - 1800.0) <= 40, "the LSB lane")
+    rows = wf_rows(wf)
+    check(len(rows) >= nblocks // 2, f"mesh W/F: {len(rows)} rows")
+    want_px = sorted(round(f / UI_SRATE_30M * WF_OUT_PX)
+                     for f in WF_CARRIERS_HZ)
+    got_px = strongest_peaks(rows[-1][2].astype(np.float64), 3)
+    check(all(abs(g - w) <= 1 for g, w in zip(got_px, want_px)),
+          f"mesh W/F peaks {got_px} are not at the carriers {want_px}")
+    starts = np.diff(np.asarray(server.block_started)) * 1e3
+    steady = starts[2:]
+    block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
+    del server, eng
+    # the entry point: --mesh time=1,chan=1 builds on the card; a mesh of
+    # more devices than the host has cards ends naming the count
+    _srv, _cfg, built = run_server.build(run_server.parse_args(
+        ["--mesh", "time=1,chan=1", "--channels", "8"]))
+    check(isinstance(built, ShardedStreamEngine) and built.device.type ==
+          "cuda" and built.mesh.shape == {"time": 1, "chan": 1},
+          "run_server --mesh time=1,chan=1 did not build a mesh engine")
+    del _srv, built
+    cards = torch.cuda.device_count()
+    refusal = None
+    if cards != 4:
+        try:
+            run_server.build(run_server.parse_args(
+                ["--mesh", "time=2,chan=2", "--channels", "8"]))
+        except SystemExit as e:
+            refusal = str(e.code)
+        check(refusal is not None and
+              f"needs 4 cards; this host has {cards}" in refusal,
+              f"run_server --mesh time=2,chan=2 on {cards} cards: {refusal}")
+    log(f"  run_server --mesh time=1,chan=1 built on the card; time=2,"
+        f"chan=2 ended with: {refusal}")
+    return dict(blocks=blocks, launches=launches, heard_hz=heard,
+                wf_peaks_px=got_px, ms_blocks=[float(v) for v in starts],
+                ms_median=float(np.median(steady)),
+                realtime_factor=float(len(steady) * block_ms
+                                      / steady.sum()),
+                run_server_refusal=refusal)
+
+
+def stage2_fft_library(torch, timer, plan, y, ref) -> dict:
+    """Kernel 2's function as ``torch.fft`` calls (the reference's
+    ``"fft"`` method, ``channelizer.stage2_fft``): its error against the
+    plain version, its time and the device memory it takes."""
+    from flydog_sdr_gps_tpu_torch.ops import channelizer as chz
+    fn = lambda: chz.stage2_fft(plan, y)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    err = float((got - ref).abs().max())
+    del got
+    log(f"  library call for stage2: torch.fft (stage2_fft, nfft "
+        f"{chz.stage2_fft_size(plan, y.shape[0])}), max|err| {err:.3e} vs "
+        f"plain (bound 1.000e-04), {peak:.3f} GB above its input")
+    check(err <= 1e-4, f"stage2_fft vs stage2_plain: {err}")
+    return dict(library_fft_ms=timer(fn, reps=3), library_fft_peak_gb=peak,
+                library_fft_max_abs_err=err)
+
+
+def phase_stage2_fft(torch, device, channels: int, block: int) -> dict:
+    """9c: the slice with ``RxParams(stage2="fft")`` held to the unfused
+    slice (kernel 2) on the same blocks, and phase 2's tone through the
+    FFT method."""
+    from flydog_sdr_gps_tpu_torch.ops import channelizer as chz
+    from flydog_sdr_gps_tpu_torch.ops import nco
+    from flydog_sdr_gps_tpu_torch.runtime import DeviceSceneSource
+    want = []
+    eng = make_engine(torch, device, channels, block, "unfused")
+    for _ in range(2):
+        want.append(eng.run_block().iq_pre_fir)
+    del eng
+    eng = make_engine(torch, device, channels, block, "fft")
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    err, ms = 0.0, []
+    for w in want:
+        t0 = time.perf_counter()
+        got = eng.run_block().iq_pre_fir
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        err = max(err, float((got - w).abs().max()))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del eng, got, want
+    log(f"  slice with stage2=\"fft\": max |iq - kernel 2's| {err:.3e} "
+        f"(bound 1e-4); blocks {[round(v, 2) for v in ms]} ms, peak "
+        f"memory {peak_gb:.3f} GB ({base_gb:.3f} GB allocated before the "
+        "blocks, the engine included)")
+    check(err <= 1e-4, f"stage2 fft slice: {err}")
+    plan = chz.make_ddc_plan(audio_block=block)
+    f_tuned, f_off = 7.040e6, 1000.0
+    bank, dphi = chz.build_filterbank(
+        plan, [nco.freq_to_fcw(f_tuned, plan.adc_clock)])
+    bank = torch.as_tensor(bank, device=device)
+    dphi = torch.as_tensor(dphi, device=device)
+    src = DeviceSceneSource(tones=[(f_tuned + f_off, 1.0)],
+                            block=plan.adc_block, device=device)
+    st = chz.init_ddc_state(plan, 1, device)
+    outs = []
+    for _ in range(3):
+        x = src.next_block()
+        y1 = chz.stage1_apply(plan, torch.cat([st.x_tail, x]), bank,
+                              st.phi1, dphi)
+        y_ext = torch.cat([st.y_tail, y1])
+        outs.append(chz.stage2_fft(plan, y_ext)[:, 0].cpu().numpy())
+        st = chz.DDCState(x_tail=x[-plan.tail1:].clone(),
+                          y_tail=y_ext[-plan.tail2:].clone(),
+                          phi1=nco.advance(st.phi1, dphi, plan.k1))
+    audio = np.concatenate(outs)[64:]
+    f, amp, sinad = tone_metrics(audio, plan.fs_out)
+    log(f"  tone through the FFT method: {f:.1f} Hz, amplitude {amp:.5f}, "
+        f"SINAD {sinad:.2f} dB (want >= 80)")
+    check(abs(f - f_off) < plan.fs_out / len(audio) * 4
+          and abs(amp - 1.0) < 0.01 and sinad >= 80.0,
+          f"stage2 fft tone: {f} Hz, {amp}, {sinad} dB")
+    return dict(max_abs_err=err, ms_blocks=ms, peak_mem_gb=peak_gb,
+                base_mem_gb=base_gb, sinad_db=sinad, freq_hz=f, amplitude=amp)
+
+
+def phase_lms_block(torch, device, timer, channels: int, block: int) -> dict:
+    """9d: ``noise.lms_block`` in both modes through kernel 5 at (block,
+    channels), against its plain version."""
+    from flydog_sdr_gps_tpu_torch.ops import noise
+    gen = torch.Generator(device=device)
+    gen.manual_seed(99)
+    t = torch.arange(block, device=device, dtype=torch.float32)[:, None]
+    f = torch.empty((1, channels), device=device).uniform_(
+        0.05, 1.0, generator=gen)
+    x = 0.3 * torch.sin(f * t) + 0.1 * torch.randn(
+        (block, channels), generator=gen, device=device)
+    out = {}
+    for notch in (True, False):
+        p = noise.LmsParams(notch=notch)
+        # adapted weights and a full delay line, as in a running receiver
+        _, st = noise.lms_block(p, x.flip(0).contiguous(),
+                                noise.init_lms(p, channels, device))
+        n0 = noise.lms_chain_block.launches
+        y, s = noise.lms_block(p, x, st)
+        check(noise.lms_chain_block.launches == n0 + 1,
+              "lms_block did not launch kernel 5 once")
+        yr, sr = noise.lms_block_plain(p, x, st)
+        err, scale = max_err(y, yr)
+        werr = max_err(s.weights, sr.weights)[0]
+        lerr = max_err(s.line, sr.line)[0]
+        mode = "notch" if notch else "denoise"
+        log(f"  lms_block {mode} ({block}, {channels}): max|err| {err:.3e} "
+            f"(bound {1e-4 * scale:.3e}), weights {werr:.3e}, line "
+            f"{lerr:.3e}")
+        check(err <= 1e-4 * scale and werr <= 1e-4
+              and lerr <= 1e-4 * scale, f"lms_block {mode}: {err}")
+        out[mode] = dict(max_abs_err=err, bound=1e-4 * scale,
+                         **timer.both(lambda: noise.lms_block(p, x, st)))
+    timer.release()
+    return out
+
+
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
     if not (HERE / PKG / "_build.py").is_file():
@@ -2641,6 +3097,10 @@ def main(argv: list[str]) -> int:
         lib = (f"{r['library_call']} {r['library_ms']:.4f} ms (layout change "
                "not timed)"
                if r["library_ms"] is not None else "no single library call")
+        if "library_fft_ms" in r:
+            lib += (f"; torch.fft (the \"fft\" method) "
+                    f"{r['library_fft_ms']:.4f} ms, "
+                    f"{r['library_fft_peak_gb']:.3f} GB above its input")
         if "ms_ordinary_lanes" in r:
             lib += (f"; {r['ms_ordinary_lanes']:.4f} ms before the special "
                     "lanes were put in")
@@ -2797,12 +3257,43 @@ def main(argv: list[str]) -> int:
     nav = phase_navtex_server(torch, device, channels=4096, block=2048,
                               card=card)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s of wall time")
+    t9 = time.perf_counter()
+    log(f"phase 9a: the multi-device engine over a {MESH} (time, chan) mesh "
+        "of the one card, C=4096, audio_block=2048, against the unfused "
+        "single-device engine")
+    mesh = phase_mesh(torch, device, channels=4096, block=2048,
+                      profile=profile)
+    log(f"  mesh block: median {mesh['ms_median']} ms, min {mesh['ms_min']}, "
+        f"max {mesh['ms_max']}; realtime factor {mesh['realtime_factor']} "
+        f"(phase 3, one device, fused: median {sl['ms_median']} ms, factor "
+        f"{sl['realtime_factor']}); launches a block "
+        f"{mesh['launches_per_block']}; peak memory {mesh['peak_mem_gb']} "
+        f"GB ({mesh['base_mem_gb']:.3f} GB of it allocated before the "
+        f"run, the engine included); one SET {mesh['set_ms']:.3f} ms "
+        f"(synchronized)  [{card}]")
+    log(f"  per-block ms: {[round(v, 2) for v in mesh['ms_blocks']]}")
+    log("phase 9b: a KiwiServer over the mesh engine (4 SND listeners, one "
+        "W/F socket), and run_server --mesh on the card")
+    msrv = phase_mesh_server(torch, device, channels=4096, block=2048)
+    log(f"  mesh server: median {msrv['ms_median']} ms block start to block "
+        f"start, realtime factor {msrv['realtime_factor']} over the blocks "
+        f"after the first two  [{card}]")
+    log("phase 9c: stage 2 by FFT correlation (RxParams(stage2=\"fft\")), "
+        "C=4096, audio_block=2048")
+    s2f = phase_stage2_fft(torch, device, channels=4096, block=2048)
+    log("phase 9d: lms_block (one stage of kernel 5), both modes, "
+        "(2048, 4096)")
+    lmsb = phase_lms_block(torch, device, timer, channels=4096, block=2048)
+    log(f"  lms_block kernel ms: notch {lmsb['notch']['ms']:.4f}, denoise "
+        f"{lmsb['denoise']['ms']:.4f}  [{card}]")
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s of wall time")
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
                    server=sr, gps=g, server_gps=srg, slice_20k=s3b,
                    server_autorun={k: v for k, v in sra.items()
                                    if k != "spots"},
                    server_control=srn, decoders=dec,
-                   host_decoders=hdec, navtex_server=nav,
+                   host_decoders=hdec, navtex_server=nav, mesh=mesh,
+                   mesh_server=msrv, stage2_fft=s2f, lms_block=lmsb,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -2818,7 +3309,8 @@ def main(argv: list[str]) -> int:
              "server_control": srn["launches"],
              "gps": {"gps_track": g["launches"]},
              "server_gps": srg["launches"],
-             "navtex_server": nav["launches"]}
+             "navtex_server": nav["launches"], "mesh": mesh["launches"],
+             "mesh_server": msrv["launches"]}
 
     def per_block(name):
         if name == "gps_track":
@@ -2834,13 +3326,18 @@ def main(argv: list[str]) -> int:
              launches_per_block=per_block(name),
              launches_per_block_unfused=sl[
                  "launches_per_block_unfused"].get(name),
+             launches_per_block_mesh=mesh["launches_per_block"].get(name),
              max_abs_err=kern[name]["max_abs_err"], ms=kern[name]["ms"],
              ms_host_paced=kern[name]["ms_host_paced"],
              plain_ms=kern[name]["plain_ms"],
              bound_ms=kern[name]["bound_ms"],
              bound_by=kern[name]["bound_by"],
              share_of_bound=kern[name]["share_of_bound"],
-             library_ms=kern[name]["library_ms"])
+             library_ms=kern[name]["library_ms"],
+             **{k: kern[name][k] for k in ("library_fft_ms",
+                                            "library_fft_peak_gb",
+                                            "mesh_shard")
+                if k in kern[name]})
         for name, (src, replaces) in KERNEL_SOURCES.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -110,7 +110,8 @@ def state_from_ref(src, params: rx.RxParams, branch: str,
 
     ``branch`` names the reference stage-2 branch that produced ``src``
     ("fused" = its Pallas rotator path, "unfused" = poly/pallas after
-    the rotator pass); it must match ``params.stage2``.
+    the rotator pass, "fft" = its FFT correlation after that pass); it
+    must match ``params.stage2``.
     """
     if branch not in rx.STAGE2_BRANCHES:
         raise ValueError(f"branch must be one of {rx.STAGE2_BRANCHES}")

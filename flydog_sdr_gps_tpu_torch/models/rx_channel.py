@@ -6,7 +6,8 @@ per-channel audio path, `rx/rx_sound.cpp:222-1287`, plus the DDC):
     ADC 125 Msps
       -> stage-1 filter-bank matmul (all channels, ops/channelizer)
       -> fused NCO rotator + stage-2 decimator (CUDA kernel 1), or the
-         rotator then the unfused stage 2 (kernel 2)
+         rotator then the unfused stage 2 (kernel 2) or the FFT
+         correlation (``torch.fft``)
       -> noise blanker, passband FastFIR, S-meter, AGC (kernel 3),
          demods (SAM PLL: kernel 4), NR, squelches, de-emphasis,
          overload mute
@@ -38,7 +39,7 @@ from ..ops import nco
 from ..ops import noise as noise_ops
 from ..ops import smeter as smeter_ops
 
-STAGE2_BRANCHES = ("fused", "unfused")
+STAGE2_BRANCHES = ("fused", "unfused", "fft")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -56,7 +57,8 @@ class RxParams:
     # ops/channelizer, which refuses TF32 on the card)
     precision: str = "high"
     # stage 2: "fused" = rotator inside the stage-2 kernel (default),
-    # "unfused" = exact two-table rotator pass, then stage 2
+    # "unfused" = exact two-table rotator pass, then stage 2 (kernel 2);
+    # "fft" = the same rotator pass, then stage 2 as an FFT correlation
     stage2: str = "fused"
 
     def __post_init__(self):
@@ -388,11 +390,14 @@ def _ddc(params: RxParams, state: RxState, tuning: RxTuning,
         audio_iq = kernels.stage2_rot(y_ext, phi_ext0, tuning.dphi1,
                                       plan.h2, plan.d2, k2)
     else:
-        # the tail carries ROTATED stage-1 output in this branch
+        # the tail carries ROTATED stage-1 output in these branches
         y1 = chz.stage1_apply(plan, x_ext, tuning.bank, state.ddc.phi1,
                               tuning.dphi1)
         y_ext = torch.cat([state.ddc.y_tail, y1])
-        audio_iq = chz.stage2_apply(plan, y_ext)
+        if params.stage2 == "fft":
+            audio_iq = chz.stage2_fft(plan, y_ext)
+        else:
+            audio_iq = chz.stage2_apply(plan, y_ext)
     new = chz.DDCState(
         x_tail=x_adc[-plan.tail1:].clone(),
         y_tail=y_ext[-plan.tail2:].clone(),

@@ -19,12 +19,15 @@ What differs from the reference:
   (``allow_tf32`` False, float32 matmul precision "highest": PyTorch's
   defaults); TF32 would cost the 80 dB SINAD.
 - Stage 2 is :mod:`.kernels` (a CUDA kernel on the card, its plain
-  version on the CPU).  The reference's ``"fft"`` method is not ported.
+  version on the CPU), or :func:`stage2_fft`, the reference's ``"fft"``
+  method: an FFT correlation through ``torch.fft`` (complex64), where the
+  reference ran its matmul FFT (``ops/fft.py``, not ported).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -250,6 +253,47 @@ def stage2_apply(plan: DDCPlan, y_ext: torch.Tensor) -> torch.Tensor:
     """
     k2 = (y_ext.shape[0] - plan.tail2) // plan.d2
     return kernels.stage2(y_ext, plan.h2, plan.d2, k2)
+
+
+@functools.lru_cache(maxsize=8)
+def _stage2_h_fft(plan: DDCPlan, nfft: int,
+                  device: torch.device) -> torch.Tensor:
+    """conj(FFT(h2)) zero-padded to nfft: the correlation kernel, made
+    on the host in float64 and copied to ``device`` once per (plan,
+    nfft, device)."""
+    h = np.zeros(nfft, np.float64)
+    h[:plan.l2] = plan.h2
+    return torch.as_tensor(np.conj(np.fft.fft(h)).astype(np.complex64),
+                           device=device)
+
+
+def stage2_fft_size(plan: DDCPlan, kp: int) -> int:
+    """The transform length for ``kp`` input rows: the next power of two
+    at or above kp, doubled when the correlation would wrap."""
+    k2 = (kp - plan.tail2) // plan.d2
+    nfft = 1 << (kp - 1).bit_length()
+    if nfft - plan.l2 < (k2 - 1) * plan.d2 + 1:
+        nfft *= 2
+    return nfft
+
+
+def stage2_fft(plan: DDCPlan, y_ext: torch.Tensor) -> torch.Tensor:
+    """Stage 2 by FFT correlation (the reference's ``_stage2_fft``):
+    ``out[k] = sum_l h2[l] * y_ext[k*d2 + l]``, every d2-th lag of the
+    correlation of each channel with h2.
+
+    y_ext: (kp, C) complex64.  Returns (k2, C) complex64.  Works on the
+    (C, nfft) transpose, so it holds a few (C, nfft) complex64 planes.
+    """
+    kp, c = y_ext.shape
+    k2 = (kp - plan.tail2) // plan.d2
+    nfft = stage2_fft_size(plan, kp)
+    hf = _stage2_h_fft(plan, nfft, y_ext.device)
+    spec = torch.fft.fft(y_ext.T, n=nfft, dim=1)        # zero-padded
+    spec.mul_(hf)
+    corr = torch.fft.ifft(spec, dim=1)
+    del spec
+    return corr[:, :k2 * plan.d2:plan.d2].T.contiguous()
 
 
 def ddc_block(plan: DDCPlan, state: DDCState, x: torch.Tensor,

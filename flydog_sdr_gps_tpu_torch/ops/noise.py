@@ -12,7 +12,10 @@ and `:172`) are :func:`spectral_nr_gains`: the CUDA kernel
 ``spectral_nr_c64`` (``csrc/spectral_nr.cu``, a thread a bin and
 channel) for a CUDA tensor, its plain PyTorch loops over the frames of a
 block (16 at audio_block=2048) for a tensor on the CPU; they run only
-when a channel enables spectral NR.
+when a channel enables spectral NR.  The one-stage line enhancer
+:func:`lms_block` (the reference's ``lms_block``) is one stage of that
+chain: on the card it launches ``lms_chain_f32`` with the other stage
+off.
 """
 
 from __future__ import annotations
@@ -327,6 +330,48 @@ def init_lms(params: LmsParams, num_channels: int,
         line=torch.zeros((params.taps + params.delay, num_channels),
                          dtype=torch.float32, device=device),
     )
+
+
+def lms_block_plain(params: LmsParams, x: torch.Tensor, state: LmsState
+                    ) -> tuple[torch.Tensor, LmsState]:
+    """Plain version of :func:`lms_block`: the reference scan step as a
+    loop over samples."""
+    w, line = state.weights, state.line
+    y = torch.empty_like(x)
+    for n in range(x.shape[0]):
+        ref = line[:params.taps]
+        pred = torch.sum(w * ref, dim=0)
+        err = x[n] - pred
+        norm = torch.sum(ref * ref, dim=0) + 1e-3
+        w = params.decay * w + (params.mu / norm) * err[None, :] * ref
+        line = torch.cat([line[1:], x[n][None, :]])
+        y[n] = err if params.notch else pred
+    return y, LmsState(weights=w, line=line)
+
+
+def lms_block(params: LmsParams, x: torch.Tensor, state: LmsState
+              ) -> tuple[torch.Tensor, LmsState]:
+    """Adaptive line enhancer over (N, C) float32 audio
+    (`rx/kiwi/lms.cpp:30-123`): the predictor estimates x[n] from samples
+    older than ``delay``; denoise mode outputs the prediction, notch mode
+    the prediction error.
+
+    On the card this is kernel 5 (:func:`lms_chain_block`) with only the
+    stage of ``params``' mode on: the notch stage for notch mode, the
+    denoiser stage otherwise.  The stage that is off passes its input
+    through, and its delay line, which it still advances, is dropped.
+    """
+    if x.device.type == "cpu":
+        return lms_block_plain(params, x, state)
+    c = x.shape[1]
+    on = torch.ones(c, dtype=torch.bool, device=x.device)
+    off = torch.zeros(c, dtype=torch.bool, device=x.device)
+    spare = init_lms(params, c, x.device)
+    if params.notch:
+        y, st, _ = lms_chain_block(params, params, x, state, spare, on, off)
+    else:
+        y, _, st = lms_chain_block(params, params, x, spare, state, off, on)
+    return y, st
 
 
 def lms_chain_block_plain(notch_p: LmsParams, den_p: LmsParams,

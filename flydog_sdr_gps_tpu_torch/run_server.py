@@ -17,8 +17,10 @@ at real time; its fixes discipline the clock that tunes every channel.
 background decoders on idle channels, which yield to listeners; it takes
 every extension name the reference registers (``NAVTEX:518`` too), and a
 spec naming an unknown extension ends with an error.
-``--mesh`` is the flag of a part that is not ported yet and ends with
-an error that says so.
+``--mesh time=T,chan=K`` runs the multi-device engine
+(``runtime.ShardedStreamEngine``) over a (T, K) mesh on the host scene,
+the channel count rounded up to a multiple of T*K: with ``--cpu`` over
+T*K CPU devices, on the card over the cards, whose count must be T*K.
 """
 from __future__ import annotations
 
@@ -59,8 +61,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "--autorun wspr:7038.6 --autorun FT8:14074 "
                         "(repeatable)")
     p.add_argument("--mesh", default=None,
-                   help="run the engine over several devices, e.g. "
-                        "--mesh time=2,chan=4 (not ported yet)")
+                   help="run the multi-device engine over a device "
+                        "mesh, e.g. --mesh time=2,chan=4 (the card count "
+                        "must equal time*chan; with --cpu a mesh of that "
+                        "many CPU devices)")
     p.add_argument("--max-listeners", type=int, default=16,
                    help="mark the subscriber buckets up to this count "
                         "warm at boot; a bucket beyond it is prepared "
@@ -78,9 +82,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "synthetic scene (host-side, double-buffered "
                         "through the native ring)")
     args = p.parse_args(argv)
+    args.mesh_spec = None
     if args.mesh:
-        p.error("--mesh waits for the port of the multi-device engine "
-                "(runtime/sharded_stream.py)")
+        try:
+            spec = dict(kv.split("=") for kv in args.mesh.split(","))
+            args.mesh_spec = {k: int(v) for k, v in spec.items()}
+        except ValueError:
+            p.error(f"--mesh {args.mesh}: expected time=T,chan=K")
+        if not set(args.mesh_spec) <= {"time", "chan"} or \
+                min(args.mesh_spec.values()) < 1:
+            p.error(f"--mesh {args.mesh}: expected time=T,chan=K")
     if args.autorun:
         from .server.autorun import parse_spec
         for spec in args.autorun:
@@ -97,7 +108,8 @@ def build(args):
     import torch
     from .models import rx_channel as rx
     from .runtime import (DeviceSceneSource, FileSource, GpsReceiver,
-                          StreamEngine, SyntheticSource, ThreadedSource)
+                          ShardedStreamEngine, StreamEngine,
+                          SyntheticSource, ThreadedSource)
     from .server import KiwiServer
 
     if args.cpu:
@@ -113,6 +125,25 @@ def build(args):
             * np.sin(2 * np.pi * 2.1 * t)
 
     nchan = args.channels
+    mesh = None
+    if args.mesh_spec:
+        from . import parallel
+        t_sz = args.mesh_spec.get("time", 1)
+        k_sz = args.mesh_spec.get("chan", 1)
+        n_dev = t_sz * k_sz
+        if args.cpu:
+            mesh = parallel.make_mesh(t_sz, k_sz, devices=["cpu"] * n_dev)
+        else:
+            cards = torch.cuda.device_count()
+            if cards != n_dev:
+                sys.exit(f"run_server: --mesh time={t_sz},chan={k_sz} needs "
+                         f"{n_dev} cards; this host has {cards}")
+            mesh = parallel.make_mesh(t_sz, k_sz)
+        # the sharded step needs channels divisible by time*chan shards
+        if nchan % n_dev:
+            nchan = ((nchan + n_dev - 1) // n_dev) * n_dev
+            print(f"rounding channels {args.channels} -> {nchan} "
+                  f"(multiple of {n_dev} mesh devices)", flush=True)
     block = args.block or (128 if args.cpu else 2048)
     params = rx.RxParams(num_channels=nchan, audio_block=block)
     if args.file:
@@ -120,7 +151,9 @@ def build(args):
         # dispatch path through the native SPSC ring (data_pump split)
         src = ThreadedSource(FileSource(args.file),
                              block=params.ddc.adc_block)
-    elif args.host_scene:
+    elif args.host_scene or mesh is not None:
+        # the mesh engine splits each block over its time rows from the
+        # host, as the reference's does
         src = SyntheticSource(
             tones=[(7.100e6, 0.30, am_mod),
                    (14.2018e6, 0.15),      # USB voice-ish tone @ 14.201
@@ -134,7 +167,11 @@ def build(args):
                    (14.2018e6, 0.15),
                    (10.000e6, 0.20)],
             noise_rms=3e-4, block=params.ddc.adc_block, device=device)
-    eng = StreamEngine(params, src, device=device)
+    if mesh is not None:
+        eng = ShardedStreamEngine(params, src, mesh=mesh)
+        print(f"multi-device engine on mesh {mesh.shape}", flush=True)
+    else:
+        eng = StreamEngine(params, src, device=device)
 
     gps = None
     if args.gps:
@@ -194,6 +231,8 @@ async def prewarm(server, eng, max_listeners: int) -> None:
     engine ``prewarm_gather`` has nothing to compile and returns at
     once; buckets beyond the set are prepared off the serving path
     (`KiwiServer._serve_bucket`)."""
+    if getattr(eng, "run_block_gather", None) is None:
+        return          # no fused serving path: nothing to prepare
     loop = asyncio.get_running_loop()
     nchan = eng.params.num_channels
     top = 1

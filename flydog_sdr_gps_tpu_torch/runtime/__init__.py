@@ -4,7 +4,9 @@ from .gps_service import GpsReceiver
 from .source import (BlockRing, DeviceSceneSource, FileSource, Int24FileSource,
                      SampleSource, SyntheticSource, ThreadedSource)
 from .stream import ChannelCtl, PackedFetch, StreamEngine
+from .sharded_stream import ShardedStreamEngine
 
 __all__ = ["BlockRing", "ChannelCtl", "DeviceSceneSource", "FileSource",
            "GpsReceiver", "Int24FileSource", "PackedFetch", "SampleSource",
-           "StreamEngine", "SyntheticSource", "ThreadedSource"]
+           "ShardedStreamEngine", "StreamEngine", "SyntheticSource",
+           "ThreadedSource"]

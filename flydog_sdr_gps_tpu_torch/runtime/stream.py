@@ -164,14 +164,7 @@ class StreamEngine:
         this path runs no NaN health check and no subscriber fan-out.
         """
         x, taps = self._advance()
-        i = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
-                            device=self.device)
-        iq = taps.iq_post_agc.index_select(1, i)
-        cols = [a.T.reshape(-1)
-                for a in (taps.audio.index_select(1, i),
-                          taps.audio2.index_select(1, i), iq.real, iq.imag)]
-        return torch.cat(cols + [taps.smeter_dbm,
-                                 x.abs().max().reshape(1)])
+        return pack_columns(taps, x, idx)
 
     def packed_len(self, bucket: int) -> int:
         """Floats in :meth:`run_block_gather`'s result for one bucket."""
@@ -227,10 +220,16 @@ class StreamEngine:
     def save_state(self, path: str) -> None:
         """Snapshot the streaming state (numpy leaves), the sequence
         accounting and the control mirrors."""
-        leaves = [t.cpu().numpy() for t in _state_leaves(self.state)]
+        leaves = [t.cpu().numpy()
+                  for t in _state_leaves(self._whole_state())]
         with open(path, "wb") as f:
             pickle.dump(dict(leaves=leaves, seq=self.seq,
                              block_ticks=self.block_ticks, ctl=self.ctl), f)
+
+    def _whole_state(self) -> rx.RxState:
+        """The streaming state as one ``RxState`` (what a checkpoint
+        holds)."""
+        return self.state
 
     def load_state(self, path: str) -> None:
         """Resume from a snapshot that :meth:`save_state` wrote (a
@@ -289,6 +288,23 @@ class StreamEngine:
         the GPS-timestamped IQ headers (`rx/rx_sound.cpp:654-661`)."""
         clk = clock_hz or self.params.adc_clock
         return self.block_ticks, self.block_ticks / clk
+
+
+def pack_columns(taps: rx.RxTaps, x: torch.Tensor,
+                 idx: np.ndarray) -> torch.Tensor:
+    """The served columns of one block as ONE flat float32 tensor on the
+    taps' device: ``[audio rows | audio2 rows | iq_re rows | iq_im rows |
+    smeter(C) | peak]``, the channels ``idx`` of each tap transposed to
+    (len(idx), block) row-major; ``peak`` is max|x| of the raw block.
+    This is :meth:`StreamEngine.run_block_gather`'s result, and what the
+    server packs from ``run_block``'s taps for an engine without it."""
+    i = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+                        device=taps.audio.device)
+    iq = taps.iq_post_agc.index_select(1, i)
+    cols = [a.T.reshape(-1)
+            for a in (taps.audio.index_select(1, i),
+                      taps.audio2.index_select(1, i), iq.real, iq.imag)]
+    return torch.cat(cols + [taps.smeter_dbm, x.abs().max().reshape(1)])
 
 
 class PackedFetch:

@@ -28,8 +28,11 @@ so :meth:`KiwiServer.open_stream` takes any object of that surface and
 :meth:`KiwiServer.start` builds the aiohttp application and needs the
 package.
 
-Not here yet, raising where it is asked for: the engine split over
-several devices (the reference's non-fused serving branch).  The GPS
+An engine split over several devices (``runtime.ShardedStreamEngine``,
+whose ``run_block_gather`` is None) takes the reference's non-fused
+branch: ``run_block`` in the executor, then the subscribed columns
+packed in the fused path's layout (``runtime.stream.pack_columns``), so
+that the fetch, the fan-out and the waterfall are one code path.  The GPS
 subsystem (``gps=``, a ``runtime.GpsReceiver``) runs beside the block
 loop as the reference's does, started by :meth:`KiwiServer.start_tasks`.
 Background decoders (``autorun=``, ``server.autorun``) claim idle
@@ -59,6 +62,7 @@ from .. import extensions as ext_mod
 from ..utils.log import lprintf
 from ..utils.trace import ev, EV_SND, EV_WF, EV_WS
 from ..utils import dx as dx_mod
+from ..runtime.stream import pack_columns
 from . import packets
 from . import wf_service
 
@@ -754,11 +758,6 @@ class KiwiServer:
                  realtime: bool = False, wf_enabled: bool = True,
                  wf_chans: int = 4, gps=None, dx_path: str | None = None,
                  autorun: list[str] | None = None):
-        if not hasattr(engine, "run_block_gather"):
-            raise NotImplementedError(
-                "an engine without run_block_gather (the reference's "
-                "non-fused serving branch) waits for the multi-device "
-                "engine")
         self.engine = engine
         self.cfg = cfg
         # DX label database served over "SET MARKER" (`init/dx.cpp`)
@@ -1679,8 +1678,16 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
     def _step_and_fetch(self, idx: np.ndarray):
         """One block on the device and the start of its host copy, on
         ONE executor thread: the event that ``start_fetch`` records
-        must go on the stream that ran the gather."""
-        packed = self.engine.run_block_gather(idx)
+        must go on the stream that ran the gather.  An engine without
+        ``run_block_gather`` (the multi-device engine) runs ``run_block``
+        and its taps' columns are packed in the same layout, the peak
+        from ``_last_x``."""
+        gather = getattr(self.engine, "run_block_gather", None)
+        if gather is None:
+            taps = self.engine.run_block()
+            packed = pack_columns(taps, self.engine._last_x, idx)
+        else:
+            packed = gather(idx)
         return self.engine.start_fetch(packed)
 
     async def _block_loop_once_init(self):
@@ -1722,11 +1729,19 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                  if c.rx_chan is not None and c.authed}
                 | (self.autorun.channels
                    if self.autorun is not None else set()))
-            if subs:
+            fused = getattr(self.engine, "run_block_gather",
+                            None) is not None
+            if subs and fused:
                 bucket = self._serve_bucket(len(subs))
                 if bucket < len(subs):
                     subs = subs[:bucket]      # late joiners wait for
                     #                           the off-path prepare
+            elif subs:
+                # no fused path (the multi-device engine): nothing to
+                # prepare, every subscriber is served at once
+                bucket = 1
+                while bucket < len(subs):
+                    bucket *= 2
             else:
                 bucket = 1      # nobody listens: the block still runs
                 #                 (S-meter, ADC peak, waterfall input)
@@ -1735,7 +1750,7 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             try:
                 handle = await loop.run_in_executor(
                     None, self._step_and_fetch, idx)
-                if subs:
+                if subs and fused:
                     self._warm_buckets.add(bucket)
             except Exception as e:      # noqa: BLE001 — keep serving
                 import traceback

@@ -555,3 +555,59 @@ def test_lms_plain_three_blocks_random_enables():
         np.testing.assert_array_equal(y.numpy()[:, both_off], x[:, both_off])
     assert not tsn.weights[:, tc(~en_n)].any()
     assert bool(tsn.weights[:, tc(en_n)].any())
+
+
+@pytest.mark.parametrize("notch", [True, False])
+def test_lms_block_matches_reference(notch):
+    """The one-stage line enhancer, notch and denoise modes, against the
+    reference's ``lms_block`` scan over two blocks."""
+    tp = tnoise.LmsParams(notch=notch)
+    jp = jnoise.LmsParams(notch=notch)
+    rng = np.random.default_rng(31)
+    c, n = 3, 128
+    ts, js = tnoise.init_lms(tp, c, "cpu"), jnoise.init_lms(jp, c)
+    for blk in range(2):
+        t = (np.arange(n)[:, None] + n * blk) / FS
+        x = (np.sin(2 * np.pi * np.array([1000.0, 440.0, 2500.0]) * t)
+             + 0.3 * rng.standard_normal((n, c))).astype(np.float32)
+        y, ts = tnoise.lms_block(tp, tc(x), ts)
+        yr, js = jnoise.lms_block(jp, jnp.asarray(x), js)
+        close(y, yr, LOOP, f"block {blk}")
+        close(ts.weights, js.weights, LOOP, scale=1.0)
+        close(ts.line, js.line, LOOP)
+
+
+@pytest.mark.parametrize("notch", [True, False])
+def test_lms_block_is_one_stage_of_the_chain(notch):
+    """What the card runs for ``lms_block``: kernel 5's chain with only
+    the stage of the mode on.  On the CPU, through the chain's plain
+    version, it gives the plain ``lms_block``'s output and state."""
+    p = tnoise.LmsParams(notch=notch)
+    rng = np.random.default_rng(32)
+    c, n = 4, 96
+    x = tc((np.sin(2 * np.pi * 700.0 * np.arange(n)[:, None] / FS)
+            + 0.2 * rng.standard_normal((n, c))).astype(np.float32))
+    st = tnoise.init_lms(p, c, "cpu")
+    want, want_st = tnoise.lms_block_plain(p, x, st)
+    on, off = torch.ones(c, dtype=torch.bool), torch.zeros(c, dtype=torch.bool)
+    spare = tnoise.init_lms(p, c, "cpu")
+    if notch:
+        y, got, _ = tnoise.lms_chain_block_plain(p, p, x, st, spare, on, off)
+    else:
+        y, _, got = tnoise.lms_chain_block_plain(p, p, x, spare, st, off, on)
+    torch.testing.assert_close(y, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got.weights, want_st.weights, rtol=0,
+                               atol=1e-6)
+    assert torch.equal(got.line, want_st.line)
+
+
+def test_lms_notch_removes_tone():
+    """The reference's ``tests/test_audio_ops.py`` case on the port."""
+    p = tnoise.LmsParams(taps=32, delay=4, mu=0.05, notch=True)
+    n = 4096
+    tone = np.sin(2 * np.pi * 1000 * np.arange(n) / FS).astype(np.float32)
+    st = tnoise.init_lms(p, 1, "cpu")
+    y, st = tnoise.lms_block(p, tc(tone[:, None]), st)
+    before = np.mean(tone[-512:] ** 2)
+    after = np.mean(y[-512:, 0].numpy() ** 2)
+    assert after < before * 0.1, (before, after)

@@ -211,3 +211,31 @@ def test_ddc_tone_sinad():
     assert abs(f - 1000.0) < plan.fs_out / len(audio) * 4, f
     assert abs(amp - 1.0) < 0.01, amp
     assert sinad > 80.0, sinad
+
+
+@pytest.mark.parametrize("rate", RATES)
+def test_stage2_fft_matches_reference(rate):
+    """Stage 2 by FFT correlation (``torch.fft``) against the reference's
+    ``_stage2_fft`` (its matmul FFT) and against kernel 2's plain
+    version, at both plans."""
+    jplan = jchz.make_ddc_plan(snd_rate=rate, audio_block=128)
+    plan = tchz.make_ddc_plan(snd_rate=rate, audio_block=128)
+    c = 6
+    kp = plan.k1 + plan.tail2
+    y = _unit_noise(np.random.default_rng(4), kp, c)
+    got = tchz.stage2_fft(plan, torch.from_numpy(y))
+    assert got.shape == (plan.audio_block, c) and got.is_contiguous()
+    ref = _cplx_np(jchz.stage2_apply(jplan, jcplx.from_numpy(y),
+                                     method="fft"))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+    plain = kernels.stage2_plain(torch.from_numpy(y), plan.h2, plan.d2,
+                                 plan.audio_block)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
+                               atol=1e-4)
+    # the reference's transform length: the next power of two >= kp,
+    # doubled when the correlation would wrap
+    k2 = plan.audio_block
+    nfft = 1 << (kp - 1).bit_length()
+    if nfft - plan.l2 < (k2 - 1) * plan.d2 + 1:
+        nfft *= 2
+    assert tchz.stage2_fft_size(plan, kp) == nfft

@@ -757,3 +757,73 @@ def test_extensions_read_cuda_taps(card, name):
         msgs[str(dev)] = out
     assert msgs[str(card)] == msgs["cpu"]
     assert name == "CW_decoder" or all(msgs["cpu"])
+
+
+def test_mesh_engine_on_card_matches_unfused(card):
+    """The multi-device engine over a (2, 2) mesh of the one card, each
+    shard's stage 2 on kernel 2 and its back half on kernels 3 and 4,
+    against the unfused single-device engine on the same blocks (the
+    reference's bounds: iq 1e-5, audio 3e-3, S-meter 0.1 dB)."""
+    from flydog_sdr_gps_tpu_torch import parallel
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  ShardedStreamEngine,
+                                                  StreamEngine)
+    tones = [(7.100e6, 0.30, ("am", 1000.0, 0.6)), (14.2018e6, 0.15)]
+
+    def engine(stage2, mesh=None):
+        params = rx.RxParams(num_channels=64, audio_block=256, stage2=stage2)
+        src = DeviceSceneSource(tones=tones, noise_rms=3e-4,
+                                block=params.ddc.adc_block, device=card)
+        eng = (StreamEngine(params, src, device=card) if mesh is None
+               else ShardedStreamEngine(params, src, mesh=mesh))
+        eng.set_channel(0, freq_hz=7.100e6, mode=demod.MODE_AM)
+        eng.set_channel(33, freq_hz=14.200e6, mode=demod.MODE_USB)
+        return eng
+    mesh = parallel.make_mesh(2, 2, devices=[card] * 4)
+    eng, ref = engine("fused", mesh), engine("unfused")
+    for blk in range(4):
+        n2, n3 = kernels.stage2.launches, agc.envelope_scan.launches
+        got = eng.run_block()
+        assert kernels.stage2.launches == n2 + 4
+        assert agc.envelope_scan.launches == n3 + 4
+        want = ref.run_block()
+        assert float((got.iq_pre_fir - want.iq_pre_fir).abs().max()) <= 1e-5
+        assert float((got.audio - want.audio).abs().max()) <= 3e-3
+        assert float((got.smeter_dbm - want.smeter_dbm).abs().max()) <= 0.1
+    assert got.audio.device == card
+
+
+def test_stage2_fft_matches_kernel_2(card):
+    """The stage-2 FFT method (torch.fft) against kernel 2 at both plans."""
+    from flydog_sdr_gps_tpu_torch.ops import channelizer as chz
+    for rate in (12_000, 20_250):
+        plan = make_ddc_plan(snd_rate=rate, audio_block=256)
+        g = _gen(card, 7)
+        kp = plan.k1 + plan.tail2
+        y = torch.complex(torch.randn((kp, 300), generator=g, device=card),
+                          torch.randn((kp, 300), generator=g, device=card))
+        got = chz.stage2_fft(plan, y)
+        want = kernels.stage2(y, plan.h2, plan.d2, plan.audio_block)
+        assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("notch", [True, False])
+def test_lms_block_on_card_matches_plain(card, notch):
+    """``lms_block`` launches kernel 5 once with one stage on, and equals
+    its plain version within 1e-4 of the output's scale."""
+    p = noise.LmsParams(notch=notch)
+    g = _gen(card, 11)
+    n, c = 512, 300
+    t = torch.arange(n, device=card, dtype=torch.float32)[:, None]
+    x = 0.3 * torch.sin(0.2 * t * torch.rand((1, c), generator=g,
+                                             device=card)) \
+        + 0.1 * torch.randn((n, c), generator=g, device=card)
+    st = noise.init_lms(p, c, card)
+    before = noise.lms_chain_block.launches
+    y, s = noise.lms_block(p, x, st)
+    assert noise.lms_chain_block.launches == before + 1
+    yr, sr = noise.lms_block_plain(p, x, st)
+    scale = float(yr.abs().max())
+    assert float((y - yr).abs().max()) <= 1e-4 * scale
+    assert float((s.weights - sr.weights).abs().max()) <= 1e-4
+    assert float((s.line - sr.line).abs().max()) <= 1e-4 * scale

@@ -58,7 +58,7 @@ BLOCK = 128
 MODES = [demod.MODE_SAS, demod.MODE_SAL, demod.MODE_SAU, demod.MODE_SAM,
          demod.MODE_AM, demod.MODE_NBFM, demod.MODE_USB, demod.MODE_LSB,
          demod.MODE_CW, demod.MODE_IQ]
-JAX_STAGE2 = {"fused": "pallas_rot", "unfused": "poly"}
+JAX_STAGE2 = {"fused": "pallas_rot", "unfused": "poly", "fft": "fft"}
 
 
 def _numpy_tree(tree):
@@ -123,7 +123,7 @@ def _check(taps, jtaps, lanes, msg, smeter=True):
                                    rtol=0, atol=1e-3, err_msg=msg)
 
 
-@pytest.mark.parametrize("branch", ["fused", "unfused"])
+@pytest.mark.parametrize("branch", ["fused", "unfused", "fft"])
 def test_rx_block_three_blocks_match_reference(branch):
     jp = jrx.RxParams(num_channels=C, audio_block=BLOCK,
                       stage2=JAX_STAGE2[branch])

@@ -624,21 +624,76 @@ def test_every_reference_extension_is_taken_by_autorun():
         assert args.autorun == [f"{name}:518"]
 
 
-def test_engine_without_gather_is_refused():
-    class Sharded:
-        params = trx.RxParams(num_channels=C, audio_block=BLOCK)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tks.KiwiServer(Sharded())
+def test_engine_without_gather_is_served():
+    """An engine whose ``run_block_gather`` is None (the multi-device
+    engine, as the reference's sets it) is served through ``run_block``:
+    a listener gets SND packets in sequence, no bucket is prewarmed."""
+    from flydog_sdr_gps_tpu_torch import parallel
+    from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
+    eng = ShardedStreamEngine(
+        trx.RxParams(num_channels=C, audio_block=BLOCK),
+        tsource.SyntheticSource(**scene()),
+        mesh=parallel.make_mesh(2, 2, devices=["cpu"] * 4))
+    assert eng.run_block_gather is None
+
+    async def scenario():
+        server = tks.KiwiServer(eng, realtime=False, port=0)
+        server.start_tasks()
+        try:
+            _, sock = await _listener(server, "m1")
+            await _wait(lambda: len(sock.of(b"SND")) >= 3, what="audio")
+            seqs = [_snd(p)[1] for p in sock.of(b"SND")]
+            assert seqs == list(range(len(seqs)))
+            assert server._warm_buckets == set()
+        finally:
+            await server.stop()
+    asyncio.run(scenario())
 
 
 @pytest.mark.parametrize("flag,word", [
-    (["--mesh", "time=2,chan=2"], "multi-device"),
     (["--autorun", "nosuch:518"], "autorun")])
 def test_run_server_refuses_unported_flags(flag, word, capsys):
     with pytest.raises(SystemExit) as e:
         run_server.parse_args(flag)
     assert e.value.code == 2
     assert word in capsys.readouterr().err
+
+
+def test_run_server_mesh_builds_on_the_cpu_and_answers_status(monkeypatch):
+    """``run_server --cpu --mesh time=2,chan=2`` builds the multi-device
+    engine over four CPU devices on the host scene, the channel count
+    rounded up to a multiple of 4, and answers /status on port 0; on a
+    host whose card count is not time*chan it exits naming the count."""
+    from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
+    args = run_server.parse_args(["--cpu", "--mesh", "time=2,chan=2",
+                                  "--channels", "3", "--no-realtime",
+                                  "--port", "0"])
+    server, _cfg, eng = run_server.build(args)
+    assert isinstance(eng, ShardedStreamEngine)
+    assert eng.mesh.shape == {"time": 2, "chan": 2}
+    assert eng.params.num_channels == 4
+    assert isinstance(eng.source, tsource.SyntheticSource)
+
+    aiohttp = pytest.importorskip("aiohttp")
+
+    async def scenario():
+        runner = await server.start()
+        try:
+            async with aiohttp.ClientSession() as http:
+                async with http.get(
+                        f"http://127.0.0.1:{server.port}/status") as r:
+                    text = await r.text()
+            assert "status=active" in text and "users_max=4" in text
+        finally:
+            await server.stop()
+            await runner.cleanup()
+    asyncio.run(scenario())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="needs 4 cards; this host has 1"):
+        run_server.build(run_server.parse_args(["--mesh", "time=2,chan=2"]))
+    with pytest.raises(SystemExit):
+        run_server.parse_args(["--mesh", "time=two"])
 
 
 def test_run_server_needs_the_card_unless_cpu(monkeypatch):

@@ -7,7 +7,9 @@ originals.
   ``flydog_sdr_gps_tpu`` imports every module of the port (the server,
   its services, the web UI, the entry point and the GPS subsystem among
   them) and runs two ``StreamEngine`` blocks on the CPU (C=8,
-  audio_block=256), then one ``run_block_gather`` and one waterfall row
+  audio_block=256), a block of the multi-device engine over a (2, 2)
+  mesh of CPU devices, the stage-2 FFT method and ``lms_block``, then
+  one ``run_block_gather`` and one waterfall row
   from that block, then a ``KiwiServer`` that serves a listener two
   blocks, then a GPS cold search and a chunk of tracking on the
   device-path sky, then the decoders' front ends on a short capture
@@ -94,7 +96,9 @@ def test_port_runs_without_jax_and_reference_package():
                        "extensions.loran_c", "extensions.ale_2g",
                        "extensions.s4285", "extensions.hfdl",
                        "extensions.drm_tables", "extensions.drm_mlc",
-                       "extensions.drm", "extensions.drm_audio"):
+                       "extensions.drm", "extensions.drm_audio",
+                       "parallel", "parallel.mesh", "parallel.sharded_rx",
+                       "parallel.distributed", "runtime.sharded_stream"):
             assert f"{port.__name__}.{wanted}" in names, wanted
 
         from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -112,6 +116,27 @@ def test_port_runs_without_jax_and_reference_package():
             assert taps.audio.shape == (256, 8)
             assert bool(torch.isfinite(taps.audio).all())
         assert float(taps.audio[:, 0].abs().max()) > 1e-3
+
+        # the multi-device engine over a (2, 2) mesh of CPU devices, the
+        # stage-2 FFT method and the one-stage LMS line enhancer
+        from flydog_sdr_gps_tpu_torch import parallel
+        from flydog_sdr_gps_tpu_torch.ops import channelizer, noise
+        from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
+        mesh = parallel.make_mesh(2, 2, devices=["cpu"] * 4)
+        meng = ShardedStreamEngine(params, DeviceSceneSource(
+            tones=[(7.1e6, 0.3)], noise_rms=1e-3,
+            block=params.ddc.adc_block, device="cpu"), mesh=mesh)
+        meng.set_channel(0, freq_hz=7.0995e6, mode=demod.MODE_USB)
+        mtaps = meng.run_block()
+        assert mtaps.audio.shape == (256, 8)
+        assert bool(torch.isfinite(mtaps.audio).all())
+        y = torch.randn((params.ddc.k1 + params.ddc.tail2, 3),
+                        dtype=torch.complex64)
+        assert channelizer.stage2_fft(params.ddc, y).shape == (256, 3)
+        lp = noise.LmsParams(notch=True)
+        out, _ = noise.lms_block(lp, torch.randn(64, 2),
+                                 noise.init_lms(lp, 2, "cpu"))
+        assert out.shape == (64, 2)
 
         # the serving path and one waterfall row from the same block
         import numpy as np
