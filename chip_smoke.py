@@ -173,8 +173,28 @@ What it does, in order (any failed check raises; exit code != 0):
 9d. ``noise.lms_block`` in both modes through kernel 5 at (2048, 4096),
    within 1e-4 of the output's scale of its plain version.
 
+10. The compiled step: phases 3 to 8b run on the engine's default on the
+   card, the compiled step (CUDA graphs, a graph per program and gate
+   tuple, replayed).  (a) It against the eager engine (``use_graphs=
+   False``) from one state and one source at C=4096, audio_block=2048
+   for 24 blocks, with a SET that opens each gate (a SAS lane, the LMS
+   notch, spectral NR, NB_WILD) and later closes three of them, the GPS
+   clock's ``retune_all`` and a ``load_state``: taps and state equal to
+   the bit in every block, the same launches a block.  Prints each
+   engine's median block wall, host and device ms, the graphs captured
+   with each key's capture ms, the memory above the eager engine, and
+   the kernels, copies and fills of one eager block, of its back half
+   and of one replayed block (torch.profiler).  (b) Serving: bucket 16,
+   then 32, prepared by ``prewarm_gather`` on a thread while blocks are
+   served; every result equal to the eager engine's, no served block
+   over the block period, the first bucket-32 block a replay.
+
 Kernel 7's launch count is read around phases 3 to 6b and must be one a
-block in 4, 5 and 6b, where a lane has spectral NR on.  ``--profile``
+block in 4, 5 and 6b, where a lane has spectral NR on.  On the compiled
+engine a key's first block runs eagerly and each replay credits the
+launches its capture recorded; the launches of ``prewarm_gather``'s
+warm-ups on scratch buffers (at the server's boot) are counted beside
+the blocks'.  ``--profile``
 also prints kernel 6's clock64 split of an epoch (``csrc/gps_track.cu``
 built again with ``-DGPS_TRACK_CLOCKS`` and launched through
 ``track_epochs``).
@@ -742,7 +762,10 @@ def dominant_hz(audio: np.ndarray, fs: float) -> float:
     return float(np.fft.rfftfreq(len(audio), 1.0 / fs)[np.argmax(spec)])
 
 
-def make_engine(torch, device, channels: int, block: int, stage2: str):
+def make_engine(torch, device, channels: int, block: int, stage2: str,
+                use_graphs: bool | None = None):
+    """Phase 3's engine; ``use_graphs`` None is the engine's default (the
+    compiled step on the card)."""
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
     from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
                                                   StreamEngine)
@@ -750,7 +773,8 @@ def make_engine(torch, device, channels: int, block: int, stage2: str):
                          stage2=stage2)
     src = DeviceSceneSource(tones=SCENE, noise_rms=3e-4,
                             block=params.ddc.adc_block, device=device)
-    return tune_slice(StreamEngine(params, src, device=device))
+    return tune_slice(StreamEngine(params, src, device=device,
+                                   use_graphs=use_graphs))
 
 
 def tune_slice(eng):
@@ -993,7 +1017,8 @@ def serve_channels(bucket: int, channels: int) -> np.ndarray:
 SERVE_LANES = ("am", "usb", "sam", "lms", "spectral_nr")
 
 
-def make_serve_engine(torch, device, channels: int, block: int):
+def make_serve_engine(torch, device, channels: int, block: int,
+                      use_graphs: bool | None = None):
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
     from flydog_sdr_gps_tpu_torch.ops import demod
     from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
@@ -1003,7 +1028,7 @@ def make_serve_engine(torch, device, channels: int, block: int):
     scene = SCENE + [FSK_TONE + (("fsk", 8192, 12000 / 8192, symbols, 200),)]
     src = DeviceSceneSource(tones=scene, noise_rms=3e-4,
                             block=params.ddc.adc_block, device=device)
-    eng = StreamEngine(params, src, device=device)
+    eng = StreamEngine(params, src, device=device, use_graphs=use_graphs)
     subs = serve_channels(64, channels)
     settings = dict(
         am=dict(freq_hz=7.100e6, mode=demod.MODE_AM),
@@ -1133,7 +1158,10 @@ def phase_serve(torch, device, timer, channels: int, block: int,
         wf.ingest(eng._last_x)
         handle = eng.start_fetch(packed)    # copies while the rows are made
         rows = {z: wf.frame(s) for z, s in slots.items()}
-        torch.cuda.synchronize()
+        # the block's stream, not the device: while prewarm_gather's
+        # thread captures, CUDA refuses a device-wide synchronize (it
+        # would wait on the capturing stream) and the capture fails
+        torch.cuda.current_stream().synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         if pending is not None:             # outside the timed window:
             settle(pending)                 # the block before
@@ -1655,12 +1683,15 @@ def phase_server(torch, device, channels: int, block: int,
     asyncio.run(drive())
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches, blocks = info["launches"], info["blocks"]
+    warm = warmup_launches(eng, counters)
     log(f"  aiohttp present: {have_aiohttp}; {blocks} blocks run, launches "
-        f"{launches}")
+        f"{launches}, of which the boot's prewarm made {warm} on scratch "
+        "buffers")
     for k in ("stage2_rot", "agc_envelope", "sam_pll", "lms_chain",
               "spectral_nr"):
-        check(launches[k] == blocks, f"kernel {k}: {launches[k]} launches in "
-              f"{blocks} blocks of the server, not one a block")
+        check(launches[k] == blocks + warm[k], f"kernel {k}: {launches[k]} "
+              f"launches in {blocks} blocks of the server and {warm[k]} "
+              "warm-ups, not one a block")
     check(launches["stage2"] == 0, "the server's path is the fused one")
     check(info["drops"] == 0, f"{info['drops']} packets were dropped")
 
@@ -2667,9 +2698,10 @@ def phase_navtex_server(torch, device, channels: int, block: int,
     check(bool(ext.of(b"EXT ready NAVTEX")), "no EXT ready on the socket")
     check(NAVTEX_TEXT in text, f"the EXT socket heard {text!r}, not "
           f"{NAVTEX_TEXT!r}, in {blocks} blocks")
+    warm = warmup_launches(eng, counters)
     for k, n in launches.items():
-        check(n == blocks, f"kernel {k}: {n} launches in {blocks} blocks of "
-              "phase 8b, not one a block")
+        check(n == blocks + warm[k], f"kernel {k}: {n} launches in {blocks} "
+              f"blocks of phase 8b and {warm[k]} warm-ups, not one a block")
     return dict(heard=text, blocks=blocks, launches=launches,
                 realtime_factor=factor, ms_blocks=[float(v) for v in starts],
                 ext_host_ms_median=float(np.median(ext_ms)),
@@ -2685,6 +2717,15 @@ def phase_navtex_server(torch, device, channels: int, block: int,
 MESH = (2, 2)                   # (time, chan), every shard on the one card
 MESH_BLOCKS = 8                 # a SET before block 3, retune_all before 5
 MESH_SERVER_BLOCKS = 12
+
+
+def warmup_launches(eng, counters) -> dict:
+    """The launches each counted kernel made in ``prewarm_gather``'s
+    warm-ups on scratch buffers (real launches, which the counters hold
+    beside the blocks'); none for an eager engine."""
+    step = getattr(eng, "compiled", None)
+    done = step.warmup_launches if step is not None else {}
+    return {k: done.get(fn, 0) for k, fn in counters.items()}
 
 
 def kernel_counters():
@@ -2730,13 +2771,20 @@ def mesh_events(torch, eng, b: int) -> float | None:
 def device_profile(torch, eng) -> dict:
     """One block (after one more) under torch.profiler: the summed time
     of the kernels that ran on the card and how many there were."""
+    eng.run_block()
+    torch.cuda.synchronize()
+    return device_ops(torch, eng.run_block)
+
+
+def device_ops(torch, fn) -> dict:
+    """``fn()`` under torch.profiler: the summed time of what ran on the
+    card (kernels, copies and fills) and how many there were."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng.run_block()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        eng.run_block()
+        fn()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return dict(device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
@@ -2967,7 +3015,8 @@ def phase_stage2_fft(torch, device, channels: int, block: int) -> dict:
     want = []
     eng = make_engine(torch, device, channels, block, "unfused")
     for _ in range(2):
-        want.append(eng.run_block().iq_pre_fir)
+        # copied: the compiled step's next block overwrites its taps
+        want.append(eng.run_block().iq_pre_fir.clone())
     del eng
     eng = make_engine(torch, device, channels, block, "fft")
     torch.cuda.synchronize()
@@ -3054,6 +3103,231 @@ def phase_lms_block(torch, device, timer, channels: int, block: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the compiled step (CUDA graphs) against the eager step
+# ---------------------------------------------------------------------------
+
+# before block k of 10a: a SET that opens (then closes) each gate, the GPS
+# clock's retune_all, a reload from the eager engine's checkpoint (which
+# brings nb_wild back to its default, as the reference's does)
+COMPILED_BLOCKS = 24
+COMPILED_EVENTS = {
+    3: ("set", 6, dict(freq_hz=7.1002e6, mode="sas")),
+    5: ("set", 7, dict(freq_hz=14.2000e6, nr_notch_on=True)),
+    7: ("set", 8, dict(freq_hz=9.999e6, nr_on=True)),
+    9: ("set", 9, dict(freq_hz=7.1004e6, nb_on=True, nb_wild=True)),
+    11: ("retune_all", 0.4e-6, None),
+    13: ("load_state", None, None),
+    15: ("set", 6, dict(mode="usb")),
+    17: ("set", 7, dict(nr_notch_on=False)),
+    19: ("set", 8, dict(nr_on=False)),
+}
+
+
+def compiled_event(eng, event, ckpt: str, eager) -> None:
+    from flydog_sdr_gps_tpu_torch.ops import demod
+    kind, arg, kw = event
+    if kind == "set":
+        kw = dict(kw)
+        if "mode" in kw:
+            kw["mode"] = demod.MODE_NAMES[kw["mode"]]
+        eng.set_channel(arg, **kw)
+    elif kind == "retune_all":
+        eng.retune_all(eng.params.adc_clock * (1 + arg))
+    elif kind == "load_state":
+        if eng is eager:
+            eng.save_state(ckpt)
+        eng.load_state(ckpt)
+
+
+def timed_block(torch, fn):
+    """(result, wall ms to the end of the device work, host ms until
+    ``fn`` returned, device ms between CUDA events around it)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    stop.record()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return out, (t2 - t0) * 1e3, (t1 - t0) * 1e3, start.elapsed_time(stop)
+
+
+def first_difference(torch, got, want) -> float | None:
+    """None when every tensor of ``got`` equals ``want``'s to the bit,
+    else the largest absolute difference."""
+    worst = None
+    from flydog_sdr_gps_tpu_torch.runtime.stream import _state_leaves
+    for g, w in zip(_state_leaves(got), _state_leaves(want)):
+        if torch.equal(g, w):
+            continue
+        if g.is_complex():
+            g, w = torch.view_as_real(g), torch.view_as_real(w)
+        d = float((g.double() - w.double()).abs().max())
+        worst = d if worst is None else max(worst, d)
+    return worst
+
+
+def phase_compiled(torch, device, channels: int, block: int,
+                   small: int = 16, large: int = 32) -> dict:
+    """10: (a) the compiled engine against the eager engine from one
+    state and one source, through every gate, a retune and a reload;
+    (b) the serving path with a bucket growth prepared on a thread."""
+    import threading
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.runtime.stream import _state_leaves
+    counters = kernel_counters()
+    out_dir = HERE / "build"
+    out_dir.mkdir(exist_ok=True)
+    ckpt = str(out_dir / "chip_smoke_compiled.pkl")
+
+    # -- (a) captured against eager -------------------------------------
+    eager = make_engine(torch, device, channels, block, "fused",
+                        use_graphs=False)
+    graphs = make_engine(torch, device, channels, block, "fused")
+    check(graphs.compiled is not None and eager.compiled is None,
+          "the card's default engine is not the compiled one")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    stats = {"eager": [], "graphs": []}
+    launches = {"eager": [], "graphs": []}
+    diffs, captured_at = [], []
+    for fn in counters.values():
+        fn.launches = 0                     # the compiled path's run starts
+    for b in range(COMPILED_BLOCKS):
+        ev = COMPILED_EVENTS.get(b)
+        if ev is not None:
+            for eng in (eager, graphs):
+                compiled_event(eng, ev, ckpt, eager)
+        check(rx.gates(graphs.tuning) == rx.gates(eager.tuning),
+              "the engines' gates differ")
+        row = {}
+        for name, eng in (("eager", eager), ("graphs", graphs)):
+            before = {k: fn.launches for k, fn in counters.items()}
+            n_graphs = len(graphs.compiled.graphs)
+            taps, wall, host, dev = timed_block(torch, eng.run_block)
+            launches[name].append({k: fn.launches - before[k]
+                                   for k, fn in counters.items()})
+            stats[name].append((wall, host, dev))
+            if name == "graphs" and len(graphs.compiled.graphs) > n_graphs:
+                captured_at.append(b)
+            row[name] = rx.RxTaps(**{f.name: getattr(taps, f.name).clone()
+                                     for f in dataclasses.fields(taps)})
+        d_taps = first_difference(torch, row["graphs"], row["eager"])
+        d_state = first_difference(torch, graphs.state, eager.state)
+        diffs.append((d_taps, d_state))
+        for name in ("audio", "audio2", "iq_pre_fir", "iq_post_agc",
+                     "smeter_dbm"):
+            check(bool(torch.isfinite(getattr(row["graphs"], name)).all()),
+                  f"phase 10: non-finite {name}")
+    path_launches = {k: fn.launches for k, fn in counters.items()}
+    torch.cuda.synchronize()                # the compiled path's run ends
+    torch.cuda.empty_cache()
+    pool_gb = (torch.cuda.memory_reserved() - reserved0) / 1e9
+    step = graphs.compiled
+    buffers_gb = sum(t.numel() * t.element_size()
+                     for t in _state_leaves(step.taps) + [step.x]) / 1e9
+    capture_ms = {"/".join(str(int(v)) if isinstance(v, bool) else str(v)
+                           for v in k): g.capture_ms
+                  for k, g in step.graphs.items()}
+    # the launch count of one block and of its back half, eager, and of
+    # one replayed block
+    eager_ops = device_ops(torch, eager.run_block)
+    graph_ops = device_ops(torch, graphs.run_block)
+    x = eager.source.next_block()
+    _, iq = rx._ddc(eager.params, eager.state, eager.tuning, x)
+    back_ops = device_ops(torch, lambda: rx.audio_back_half(
+        eager.params, eager.state, eager.tuning, iq))
+    del x, iq
+    bad = [(b, d) for b, d in enumerate(diffs) if d != (None, None)]
+    log(f"  captured against eager over {COMPILED_BLOCKS} blocks: "
+        f"{'equal to the bit in every block (taps and state)' if not bad else f'differences (block, (taps, state) max abs): {bad}'}")
+    check(not bad, f"the captured step differs from the eager step: {bad}")
+    check(launches["graphs"] == launches["eager"],
+          f"launches a block differ: {launches}")
+    steady = [b for b in range(2, COMPILED_BLOCKS) if b not in captured_at]
+
+    def med(name, i):
+        return statistics.median(stats[name][b][i] for b in steady)
+    summary = {name: dict(wall_ms=med(name, 0), host_ms=med(name, 1),
+                          device_ms=med(name, 2))
+               for name in stats}
+    del eager, graphs, step, row
+
+    # -- (b) serving: a bucket growth prepared on a thread -------------
+    def subs(bucket):
+        return serve_channels(64, channels)[:bucket]
+    eager = make_serve_engine(torch, device, channels, block,
+                              use_graphs=False)
+    graphs = make_serve_engine(torch, device, channels, block)
+    block_ms = graphs.params.ddc.adc_block / graphs.params.adc_clock * 1e3
+    serve_ms, warm, errors, equal = [], None, [], True
+    key_large = None
+
+    def prewarm():
+        try:
+            graphs.prewarm_gather(large)
+        except Exception as e:              # noqa: BLE001 — checked below
+            errors.append(repr(e))
+    nserve, grow = 12, 7
+    for b in range(nserve):
+        bucket = small if b < grow else large
+        if b == 2:
+            warm = threading.Thread(target=prewarm)
+            warm.start()
+        if b == grow:
+            warm.join()
+            check(not errors, f"prewarm_gather failed: {errors}")
+            key_large = ("gather", large) + rx.gates(graphs.tuning)
+            check(key_large in graphs.compiled.graphs,
+                  "the bucket was not captured off the loop")
+        n_graphs = len(graphs.compiled.graphs)
+        t0 = time.perf_counter()
+        got = graphs.fetch(graphs.run_block_gather(subs(bucket)))
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+        if b >= grow:
+            check(len(graphs.compiled.graphs) == n_graphs,
+                  "a capture ran on the serving loop after the growth")
+        want = eager.fetch(eager.run_block_gather(subs(bucket)))
+        equal &= bool(np.array_equal(got, want))
+    check(equal, "a served block differs from the eager engine's")
+    during = serve_ms[2:grow]
+    log(f"  serving, bucket {small} then {large} (prepared on a thread from "
+        f"block 2, served from block {grow}): served ms "
+        f"{[round(v, 2) for v in serve_ms]}; every result equal to the "
+        f"eager engine's; longest block while the thread captured "
+        f"{max(during):.2f} ms (block period {block_ms:.3f} ms)")
+    # a block stalls when it misses the real-time budget
+    check(max(serve_ms[1:]) < block_ms, "a served block stalled")
+    prep_ms = graphs.compiled.graphs[key_large].capture_ms
+    del eager, graphs
+    return dict(launches=path_launches, blocks=COMPILED_BLOCKS,
+                steady_blocks=steady, captured_at=captured_at,
+                ms=summary, ms_blocks={k: [list(v) for v in vs]
+                                       for k, vs in stats.items()},
+                graphs=len(capture_ms), capture_ms=capture_ms,
+                pool_gb=pool_gb, buffers_gb=buffers_gb,
+                eager_block=eager_ops, replayed_block=graph_ops,
+                back_half=back_ops, serve_ms=serve_ms,
+                prewarm_capture_ms=prep_ms, block_period_ms=block_ms)
+
+
+def between_phases(torch) -> None:
+    """Free what the last phase left (its engines and servers hold
+    reference cycles, and each compiled engine a graph memory pool)
+    before the next phase starts, and say what stays allocated."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  (between phases: {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved)")
+
+
 def main(argv: list[str]) -> int:
     profile = "--profile" in argv
     if not (HERE / PKG / "_build.py").is_file():
@@ -3130,8 +3404,10 @@ def main(argv: list[str]) -> int:
     for name, ms in lms["ms_by_enables"].items():
         check(lms["bound_ms_by_enables"][name] / ms <= 1.05,
               f"lms_chain {name} is under its bound")
+    between_phases(torch)
     log("phase 2: DDC tone fidelity")
     ddc = phase_ddc(torch, device, block=2048)
+    between_phases(torch)
     log("phase 3: the slice, C=4096, audio_block=2048")
     sl = phase_slice(torch, device, channels=4096, block=2048,
                      profile=profile)
@@ -3144,6 +3420,7 @@ def main(argv: list[str]) -> int:
         f"unfused: {[round(v, 2) for v in sl['ms_unfused_blocks']]}")
     if sl["profile"]:
         log(sl["profile"])
+    between_phases(torch)
     log("phase 3b: the 20.25 kHz chain (rx3.wf3's rate, d2=4), C=4096, "
         "audio_block=2048")
     s3b = phase_slice_20k(torch, device, channels=4096, block=2048)
@@ -3154,6 +3431,7 @@ def main(argv: list[str]) -> int:
         f"{s3b['ms_min']}, max {s3b['ms_max']}; fs_out {s3b['fs_out']} Hz  "
         f"[{card}]")
     log(f"  per-block ms: {[round(v, 2) for v in s3b['ms_blocks']]}")
+    between_phases(torch)
     log("phase 4: the serving path, C=4096, audio_block=2048, buckets 32 "
         "and 64, four waterfall slots")
     sv = phase_serve(torch, device, timer, channels=4096, block=2048,
@@ -3178,6 +3456,7 @@ def main(argv: list[str]) -> int:
         f"  [{card}]")
     if sv["profile"]:
         log(sv["profile"])
+    between_phases(torch)
     log("phase 5: the server, C=4096, audio_block=2048, 32 listeners and "
         "four waterfall sockets over the KiwiSDR protocol")
     sr = phase_server(torch, device, channels=4096, block=2048)
@@ -3195,11 +3474,13 @@ def main(argv: list[str]) -> int:
         f"aiohttp present: {sr['aiohttp']}  [{card}]")
     check(sr["realtime_factor"] >= 1.0, "the server does not hold real time")
     autorun = ["wspr:14095.6", "FT8:14074"]
+    between_phases(torch)
     log(f"phase 5 with autorun: the same server with autorun={autorun} "
         f"beside the 32 listeners, {AUTORUN_BLOCKS} blocks (an FT8 capture "
         "completes in its 80th), then the same run without autorun")
     sra = phase_server(torch, device, channels=4096, block=2048,
                        nblocks=AUTORUN_BLOCKS, autorun=autorun)
+    between_phases(torch)
     srn = phase_server(torch, device, channels=4096, block=2048,
                        nblocks=AUTORUN_BLOCKS)
     log(f"  with autorun: per block median {sra['ms_median']} ms, min "
@@ -3212,6 +3493,7 @@ def main(argv: list[str]) -> int:
     log(f"  per-block ms with autorun: {[round(v, 2) for v in sra['ms_blocks']]}")
     check(sra["realtime_factor"] >= 1.0,
           "the server with autorun does not hold real time")
+    between_phases(torch)
     log("phase 6a: GPS alone, cold start, 12 rows, 0.4 s chunks of the "
         "run_server --gps sky on the card")
     g = phase_gps(torch, device)
@@ -3225,6 +3507,7 @@ def main(argv: list[str]) -> int:
         f"{med['solve'] if med['solve'] is None else round(med['solve'], 3)}"
         f"; IF/wall {g['if_over_wall']:.3f} over {g['chunks']} chunks  "
         f"[{card}]")
+    between_phases(torch)
     log("phase 6b: the server of phase 5 with the GPS receiver beside it "
         "(the run_server --gps sky, paced at real time)")
     gps_rec, _rx, _want, _decoys = make_gps(device, realtime=True)
@@ -3241,23 +3524,27 @@ def main(argv: list[str]) -> int:
     log(f"  per-block ms: {[round(v, 2) for v in srg['ms_blocks']]}")
     check(srg["realtime_factor"] >= 1.0,
           "the server with GPS does not hold real time")
+    between_phases(torch)
     log("phase 7: the decoders' front ends on the card (WSPR, FT8, FT4 "
         "through device taps at C=4096, the off-air WSPR capture, the FFT "
         "row)")
     dec = phase_decoders(torch, device, timer, channels=4096, block=2048,
                          card=card)
     t8 = time.perf_counter()
+    between_phases(torch)
     log("phase 8a: the host-only decoders through (2048, 4096) device taps "
         "(FSK, NAVTEX, timecode, FAX, SSTV, Loran-C, ALE, STANAG 4285, HFDL, "
         "DRM)")
     hdec = phase_host_decoders(torch, device, channels=4096, block=2048,
                                card=card)
+    between_phases(torch)
     log(f"phase 8b: NAVTEX at {NAVTEX_KHZ:.3f} kHz through the main path, "
         "the server and an EXT client, C=4096, audio_block=2048")
     nav = phase_navtex_server(torch, device, channels=4096, block=2048,
                               card=card)
     log(f"  phase 8 took {time.perf_counter() - t8:.1f} s of wall time")
     t9 = time.perf_counter()
+    between_phases(torch)
     log(f"phase 9a: the multi-device engine over a {MESH} (time, chan) mesh "
         "of the one card, C=4096, audio_block=2048, against the unfused "
         "single-device engine")
@@ -3272,21 +3559,52 @@ def main(argv: list[str]) -> int:
         f"run, the engine included); one SET {mesh['set_ms']:.3f} ms "
         f"(synchronized)  [{card}]")
     log(f"  per-block ms: {[round(v, 2) for v in mesh['ms_blocks']]}")
+    between_phases(torch)
     log("phase 9b: a KiwiServer over the mesh engine (4 SND listeners, one "
         "W/F socket), and run_server --mesh on the card")
     msrv = phase_mesh_server(torch, device, channels=4096, block=2048)
     log(f"  mesh server: median {msrv['ms_median']} ms block start to block "
         f"start, realtime factor {msrv['realtime_factor']} over the blocks "
         f"after the first two  [{card}]")
+    between_phases(torch)
     log("phase 9c: stage 2 by FFT correlation (RxParams(stage2=\"fft\")), "
         "C=4096, audio_block=2048")
     s2f = phase_stage2_fft(torch, device, channels=4096, block=2048)
+    between_phases(torch)
     log("phase 9d: lms_block (one stage of kernel 5), both modes, "
         "(2048, 4096)")
     lmsb = phase_lms_block(torch, device, timer, channels=4096, block=2048)
     log(f"  lms_block kernel ms: notch {lmsb['notch']['ms']:.4f}, denoise "
         f"{lmsb['denoise']['ms']:.4f}  [{card}]")
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s of wall time")
+    t10 = time.perf_counter()
+    between_phases(torch)
+    log("phase 10: the compiled step (CUDA graphs) against the eager step, "
+        "C=4096, audio_block=2048")
+    cmp = phase_compiled(torch, device, channels=4096, block=2048)
+    for name, m in cmp["ms"].items():
+        log(f"  {name}: median block wall {m['wall_ms']:.3f} ms, host "
+            f"{m['host_ms']:.3f} ms (until run_block returned), device "
+            f"{m['device_ms']:.3f} ms (CUDA events around the block), over "
+            f"the {len(cmp['steady_blocks'])} blocks that replayed  [{card}]")
+    log(f"  graphs captured: {cmp['graphs']} (blocks {cmp['captured_at']} "
+        f"were a key's first: eager, then captured); capture ms by key "
+        f"(program/gates): "
+        f"{ {k: round(v, 2) for k, v in cmp['capture_ms'].items()} }; "
+        f"bucket {32} prepared on a thread in "
+        f"{cmp['prewarm_capture_ms']:.2f} ms  [{card}]")
+    log(f"  memory above the eager engine: {cmp['pool_gb']:.3f} GB reserved "
+        f"by the run's graphs (reserved after the run minus before, caches "
+        f"emptied) + {cmp['buffers_gb']:.3f} GB of input and tap buffers  "
+        f"[{card}]")
+    log(f"  on the card in one block (torch.profiler): eager "
+        f"{cmp['eager_block']['device_ops']} kernels, copies and fills, "
+        f"{cmp['eager_block']['device_ms']:.3f} ms; its back half alone "
+        f"{cmp['back_half']['device_ops']}, "
+        f"{cmp['back_half']['device_ms']:.3f} ms; a replayed block "
+        f"{cmp['replayed_block']['device_ops']}, "
+        f"{cmp['replayed_block']['device_ms']:.3f} ms  [{card}]")
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s of wall time")
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
                    server=sr, gps=g, server_gps=srg, slice_20k=s3b,
                    server_autorun={k: v for k, v in sra.items()
@@ -3294,6 +3612,7 @@ def main(argv: list[str]) -> int:
                    server_control=srn, decoders=dec,
                    host_decoders=hdec, navtex_server=nav, mesh=mesh,
                    mesh_server=msrv, stage2_fft=s2f, lms_block=lmsb,
+                   compiled=cmp,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -3310,7 +3629,7 @@ def main(argv: list[str]) -> int:
              "gps": {"gps_track": g["launches"]},
              "server_gps": srg["launches"],
              "navtex_server": nav["launches"], "mesh": mesh["launches"],
-             "mesh_server": msrv["launches"]}
+             "mesh_server": msrv["launches"], "compiled": cmp["launches"]}
 
     def per_block(name):
         if name == "gps_track":

@@ -9,11 +9,15 @@ reuses the library.  Nothing happens at import time.
 
 Each C entry point takes every pointer and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises
-when that is not 0.
+when that is not 0.  Each wrapper counts its launches through
+:func:`count_launch`, which a CUDA graph's capture redirects
+(:func:`recording`): a capture launches nothing, and each replay of the
+graph credits the launches it recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -69,6 +73,11 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# per thread: the launch counts of a capture in progress (see recording)
+_capture = threading.local()
+# the counters are bumped from the block loop and from a capturing or
+# warming thread at once
+_count_lock = threading.Lock()
 # wall seconds of the nvcc run made by this process (None: none made)
 build_seconds: float | None = None
 
@@ -145,6 +154,39 @@ def lib() -> ctypes.CDLL:
 def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError {err}")
+
+
+def count_launch(fn) -> None:
+    """Count one launch of ``fn``'s kernel in ``fn.launches``, or, while
+    this thread captures a CUDA graph, in that capture's record."""
+    rec = getattr(_capture, "counts", None)
+    if rec is None:
+        with _count_lock:
+            fn.launches += 1
+    else:
+        rec[fn] = rec.get(fn, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect this thread's kernel launches in a dict ``{wrapper: n}``
+    instead of the wrappers' counters (for a graph capture, which runs
+    nothing: its replays credit the dict)."""
+    if getattr(_capture, "counts", None) is not None:
+        raise RuntimeError("a capture is already recording in this thread")
+    _capture.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def credit(counts: dict) -> None:
+    """Add a recorded capture's launches to the wrappers' counters (one
+    replay of its graph)."""
+    with _count_lock:
+        for fn, n in counts.items():
+            fn.launches += n
 
 
 def require_cuda(t, name: str) -> None:

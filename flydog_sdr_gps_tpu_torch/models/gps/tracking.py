@@ -412,7 +412,7 @@ def track_epochs(params: TrackParams, state: TrackState,
         f32(params.fll_g), f32(params.dll_g), *loop_constants(params),
         f32(params.fc), stream)
     _build.check(err, "gps_track_f32")
-    track_epochs.launches += 1
+    _build.count_launch(track_epochs)
     return state, dict(zip(OUT_FIELDS, outs))
 
 

@@ -18,16 +18,24 @@ gain) are data.  The reference's ``lax.cond`` gates (NB_WILD, SAM
 sidebands, LMS, spectral NR) become Python branches on four booleans
 that :func:`with_gates` derives on the host whenever the tuning is
 built or changed, so a block never waits on the device to decide.
+
+:func:`jit_rx_block` is the compiled step (the reference's
+``jit_rx_block``): the same block program over buffers it owns, captured
+in one CUDA graph per gate tuple on a card and replayed.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import functools
+import threading
+import time
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
+from .. import _build
 from ..numerology import ADC_CLOCK_NOM, AUDIO_BLOCK, SND_RATE_12K
 from ..ops import agc as agc_ops
 from ..ops import channelizer as chz
@@ -134,15 +142,16 @@ class RxTuning:
     any_spectral_nr: bool = False  # some channel runs spectral NR
 
 
+GATE_FIELDS = ("any_nb_wild", "any_sideband", "any_lms", "any_spectral_nr")
+
+
 def with_gates(t: RxTuning) -> RxTuning:
     """Recompute the host gates from the per-channel tensors.  Call after
     building or changing a tuning (it reads (C,) flags to the host)."""
     flags = torch.stack([
         (t.nb_wild & t.nb_on).any(), (t.mode >= demod_ops.MODE_SAL).any(),
         (t.nr_notch_on | t.nr_den_on).any(), t.nr_on.any()]).tolist()
-    return dataclasses.replace(t, any_nb_wild=flags[0],
-                              any_sideband=flags[1], any_lms=flags[2],
-                              any_spectral_nr=flags[3])
+    return dataclasses.replace(t, **dict(zip(GATE_FIELDS, flags)))
 
 
 @dataclasses.dataclass
@@ -259,6 +268,15 @@ class RxTaps:
     smeter_dbm: torch.Tensor      # (C,) float32 block peak level
 
 
+@functools.lru_cache(maxsize=None)
+def _sideband_coefs(params: RxParams, device: torch.device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SAM sideband masks on ``device``, made once per params and
+    device (constants of the block program, not a copy a block)."""
+    return (torch.as_tensor(params.sb_coef_l, device=device),
+            torch.as_tensor(params.sb_coef_u, device=device))
+
+
 def audio_back_half(params: RxParams, state: RxState, tuning: RxTuning,
                     iq: torch.Tensor) -> tuple[RxState, RxTaps]:
     """The audio-rate chain after the DDC, for all channels at once.
@@ -291,8 +309,7 @@ def audio_back_half(params: RxParams, state: RxState, tuning: RxTuning,
 
     # --- SAM sideband selection (SAL/SAU/SAS) on the locked baseband ---
     if tuning.any_sideband:
-        coef_l = torch.as_tensor(params.sb_coef_l, device=iq.device)
-        coef_u = torch.as_tensor(params.sb_coef_u, device=iq.device)
+        coef_l, coef_u = _sideband_coefs(params, iq.device)
         vl, vu, sb_tail = fastfir.fastfir_block2(
             params.fir, v_locked, state.sb_tail, coef_l, coef_u)
         sb_l, sb_u = 2.0 * vl.real, 2.0 * vu.real
@@ -404,3 +421,239 @@ def _ddc(params: RxParams, state: RxState, tuning: RxTuning,
         phi1=nco.advance(state.ddc.phi1, tuning.dphi1, plan.k1),
     )
     return new, audio_iq
+
+
+# ---------------------------------------------------------------------------
+# the compiled block program
+# ---------------------------------------------------------------------------
+
+def gates(tuning: RxTuning) -> tuple[bool, bool, bool, bool]:
+    """The host gates of a tuning: what a compiled step is keyed by, as a
+    jitted function is by its static arguments."""
+    return tuple(getattr(tuning, f) for f in GATE_FIELDS)
+
+
+def copy_into(dst, src) -> None:
+    """Copy each tensor of ``src`` into the same field of ``dst`` (a
+    tensor or nested dataclasses of tensors; fields that are not tensors
+    are left alone).  Shapes and dtypes must agree; a field whose
+    tensor already is ``dst``'s is skipped."""
+    if isinstance(dst, torch.Tensor):
+        if src is dst:
+            return
+        if not isinstance(src, torch.Tensor) or src.shape != dst.shape \
+                or src.dtype != dst.dtype:
+            raise ValueError(
+                f"cannot copy {getattr(src, 'dtype', type(src))} "
+                f"{tuple(getattr(src, 'shape', ()))} into a {dst.dtype} "
+                f"{tuple(dst.shape)} buffer")
+        dst.copy_(src)
+        return
+    for f in dataclasses.fields(dst):
+        d = getattr(dst, f.name)
+        if isinstance(d, torch.Tensor) or dataclasses.is_dataclass(d):
+            copy_into(d, getattr(src, f.name))
+
+
+def empty_taps(params: RxParams, device: torch.device | str) -> RxTaps:
+    """Tap buffers of one block (what a compiled step writes its taps
+    into)."""
+    b, c = params.audio_block, params.num_channels
+    f32 = dict(dtype=torch.float32, device=device)
+    c64 = dict(dtype=torch.complex64, device=device)
+    return RxTaps(audio=torch.zeros((b, c), **f32),
+                  audio2=torch.zeros((b, c), **f32),
+                  iq_pre_fir=torch.zeros((b, c), **c64),
+                  iq_post_agc=torch.zeros((b, c), **c64),
+                  smeter_dbm=torch.zeros(c, **f32))
+
+
+class _Graph:
+    """One captured program: its CUDA graph, the launches each wrapper
+    made during the capture (credited at every replay, so a replayed
+    block counts as an eager one does) and the capture's wall ms."""
+
+    def __init__(self, graph, launches: dict, capture_ms: float):
+        self.graph = graph
+        self.launches = launches
+        self.capture_ms = capture_ms
+
+    def replay(self) -> None:
+        self.graph.replay()
+        _build.credit(self.launches)
+
+
+def _warm_blas(device: torch.device) -> None:
+    """One tiny float32 matmul on this thread's current stream: it makes
+    the thread's cuBLAS handle and that stream's workspace, which must
+    not be made inside a capture."""
+    a = torch.zeros((8, 8), dtype=torch.float32, device=device)
+    torch.matmul(a, a)
+
+
+class CompiledRxBlock:
+    """The block program of one ``RxParams`` on one device, compiled.
+
+    The port's counterpart of the reference's ``jit_rx_block``.  It owns
+    the step's buffers: the input block ``x``, the streaming ``state``,
+    the ``tuning`` and the ``taps``.  A program (the block step
+    :meth:`block`, or a serving program that an engine defines over more
+    buffers of its own) reads and writes only buffers.  Control-plane
+    changes reach them by copy (:func:`copy_into`), never by rebinding:
+    a graph reads fixed addresses.
+
+    On a card each program is captured in a CUDA graph under each gate
+    tuple (:func:`gates`; they choose Python branches where the
+    reference has ``lax.cond``, so a graph is kept per tuple as
+    ``jax.jit`` keeps a program per static argument).  The first run of
+    a key runs eagerly on the live buffers (it is that block, and the
+    warm-up that makes cuBLAS handles and cuFFT plans, which must exist
+    before a capture), then the key is captured; later runs replay it.
+    :meth:`prepare` captures a key ahead of time without touching the
+    live buffers.  All graphs of one step share one memory pool, and the
+    buffers lie outside it, so no graph's temporaries land on what
+    another graph reads.  A capture or replay that fails raises; nothing
+    runs eagerly in its place.  On the CPU a program runs its body: the
+    same static-buffer step, with nothing captured.
+
+    Every block writes the same buffers: a block's taps (and a serving
+    program's result) are overwritten by the next block, so whatever
+    keeps them longer copies them first.
+    """
+
+    def __init__(self, params: RxParams, device: torch.device | str):
+        self.params = params
+        self.device = torch.device(device)
+        self.state = init_state(params, self.device)
+        self.tuning = default_tuning(params, self.device)
+        self.x = torch.zeros(params.ddc.adc_block, dtype=torch.float32,
+                             device=self.device)
+        self.taps = empty_taps(params, self.device)
+        self.graphs: dict[tuple, _Graph] = {}
+        # launches of the warm-ups :meth:`prepare` ran on scratch buffers
+        # (real launches, counted as such; {wrapper: n})
+        self.warmup_launches: dict = {}
+        self._warm: set[tuple] = set()      # gate tuples run eagerly here
+        self._failed: dict[tuple, str] = {}  # keys whose capture failed
+        self._lock = threading.Lock()       # one capture at a time
+        if self.device.type == "cuda":
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
+
+    # -- the block step --------------------------------------------------
+    def body(self, state: RxState, tuning: RxTuning, x: torch.Tensor,
+             taps: RxTaps | None = None) -> RxTaps:
+        """One block over buffers: ``rx_block``, then its new state copied
+        into ``state`` (and its taps into ``taps``, when given).  Returns
+        the block's taps as ``rx_block`` made them."""
+        new_state, new_taps = rx_block(self.params, state, tuning, x)
+        copy_into(state, new_state)
+        if taps is not None:
+            copy_into(taps, new_taps)
+        return new_taps
+
+    def block(self, x: torch.Tensor) -> RxTaps:
+        """One block: ``x`` copied into the input buffer, the step run
+        (replayed on a card) for the current gates; returns the taps
+        buffers."""
+        self.x.copy_(x)
+        self.run(("block",), lambda t: self.body(self.state, t, self.x,
+                                                 self.taps))
+        return self.taps
+
+    # -- programs --------------------------------------------------------
+    def run(self, program: tuple, fn: Callable[[RxTuning], object]
+            ) -> None:
+        """Run ``program`` (a tuple naming it, e.g. ``("block",)``) for
+        the current gates: its graph is keyed ``program + gates``.
+        ``fn(tuning)`` is its body over the live buffers (``tuning`` is
+        the tuning buffers with this run's gates)."""
+        tuning = self.tuning
+        if self.device.type != "cuda":
+            fn(tuning)
+            return
+        key = program + gates(tuning)
+        graph = self.graphs.get(key)
+        if graph is None:
+            if key in self._failed:         # no eager block in its place
+                raise RuntimeError(f"the capture of {key} failed: "
+                                   f"{self._failed[key]}")
+            with self._lock:
+                graph = self.graphs.get(key)
+                if graph is None:
+                    fn(tuning)              # this block, and the warm-up
+                    self._warm.add(gates(tuning))
+                    self._capture(key, lambda: fn(tuning))
+                    return
+        graph.replay()
+
+    def prepare(self, program: tuple, fn: Callable[[RxTuning], object],
+                warm: Callable[[RxTuning], object]) -> None:
+        """Capture ``program`` for the current gates off the block
+        loop (from any thread, beside replays on another).  ``fn`` is as
+        for :meth:`run`; ``warm(tuning)`` runs the same program eagerly
+        on scratch buffers, and runs only when these gates have not yet
+        run here: the live buffers are never touched.
+
+        While it captures, no other thread may synchronize the whole
+        device (``torch.cuda.synchronize()``, ``empty_cache()``): CUDA
+        refuses a wait on a capturing stream, and the capture fails.
+        Wait on a stream or an event instead, as the engine and the
+        server do."""
+        if self.device.type != "cuda":
+            return
+        tuning = self.tuning
+        key = program + gates(tuning)
+        with self._lock:
+            if key in self.graphs:
+                return
+            if key in self._failed:
+                raise RuntimeError(f"the capture of {key} failed: "
+                                   f"{self._failed[key]}")
+            if gates(tuning) not in self._warm:
+                with torch.cuda.stream(self._stream), \
+                        _build.recording() as launches:
+                    warm(tuning)
+                _build.credit(launches)
+                for wrapper, n in launches.items():
+                    self.warmup_launches[wrapper] = \
+                        self.warmup_launches.get(wrapper, 0) + n
+                self._stream.synchronize()
+                self._warm.add(gates(tuning))
+            self._capture(key, lambda: fn(tuning))
+
+    def _capture(self, key: tuple, fn: Callable[[], object]) -> None:
+        """Record ``fn`` in a CUDA graph on the step's own stream, in this
+        thread's capture mode only (other threads go on launching), into
+        the step's memory pool."""
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device), \
+                torch.cuda.stream(self._stream):
+            _warm_blas(self.device)
+            with _build.recording() as launches:
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                recorded = False
+                try:
+                    fn()
+                    recorded = True
+                    graph.capture_end()
+                except BaseException as e:
+                    self._failed[key] = repr(e)
+                    if not recorded:        # end the broken capture
+                        try:
+                            graph.capture_end()
+                        except Exception:   # noqa: BLE001 — the first
+                            pass            # error is the one to raise
+                    raise
+        self.graphs[key] = _Graph(graph, dict(launches),
+                                  (time.perf_counter() - t0) * 1e3)
+
+
+def jit_rx_block(params: RxParams, device: torch.device | str = "cuda"
+                 ) -> CompiledRxBlock:
+    """The compiled block step for this build on ``device`` (the
+    reference's ``jit_rx_block``): ``step.block(x)`` advances
+    ``step.state`` under ``step.tuning`` and returns ``step.taps``."""
+    return CompiledRxBlock(params, device)

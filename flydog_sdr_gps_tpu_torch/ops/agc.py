@@ -107,7 +107,7 @@ def envelope_scan(params: AgcParams, mag_db: torch.Tensor,
         hang.data_ptr(), n, c, params.attack_alpha, params.decay_alpha,
         params.hang_samples, stream)
     _build.check(err, "agc_envelope_f32")
-    envelope_scan.launches += 1
+    _build.count_launch(envelope_scan)
     return env_seq, env, hang
 
 
@@ -130,8 +130,7 @@ def agc_block(params: AgcParams, x: torch.Tensor, state: AgcState,
     gain_db = torch.where(
         env_seq >= knee,
         target_db - env_seq + params.slope_db * (env_seq - knee) / 100.0,
-        torch.tensor(target_db - knee, dtype=torch.float32,
-                     device=x.device))
+        float(np.float32(target_db - knee)))
     gain_db = torch.clamp(gain_db, max=params.max_gain_db)
     if manual_gain_db is not None:
         manual = manual_gain_db.expand(gain_db.shape)

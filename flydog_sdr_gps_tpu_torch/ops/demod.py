@@ -178,7 +178,7 @@ def sam_pll(params: SamParams, z: torch.Tensor, phase0: torch.Tensor,
         z.data_ptr(), v.data_ptr(), phase.data_ptr(), freq.data_ptr(), n, c,
         params.g1, params.g2, params.fmax, stream)
     _build.check(err, "sam_pll_c64")
-    sam_pll.launches += 1
+    _build.count_launch(sam_pll)
     return v, phase, freq
 
 

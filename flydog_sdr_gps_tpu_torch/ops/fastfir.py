@@ -17,6 +17,7 @@ from .filters import complex_bandpass
 
 FFT_SIZE = 1024          # CONV_FFT_SIZE  (rx/CuteSDR/cuteSDR.h:12)
 NTAPS = 513              # CONV_FIR_SIZE  (rx/CuteSDR/cuteSDR.h:14)
+HOP = FFT_SIZE - (NTAPS - 1)   # = 512 samples of valid output per transform
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -151,3 +151,11 @@ def halfband(atten_db: float = 90.0, numtaps: int | None = None) -> np.ndarray:
     h2[::2] = h[::2]
     h2[mid] = 0.5
     return h2 / np.sum(h2)
+
+
+def fir_freq_response(h: np.ndarray, freqs_hz: np.ndarray, fs: float
+                      ) -> np.ndarray:
+    """Exact frequency response H(f) of FIR taps at given frequencies."""
+    n = np.arange(len(h))
+    return np.asarray(h) @ np.exp(-2j * np.pi *
+                                  np.outer(n, np.asarray(freqs_hz) / fs))

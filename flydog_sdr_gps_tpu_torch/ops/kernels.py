@@ -86,7 +86,7 @@ def stage2(y: torch.Tensor, h2: np.ndarray, d2: int, k2: int
         y.data_ptr(), out.data_ptr(), taps.ctypes.data, y.shape[1], k2,
         d2, m2, stream)
     _build.check(err, "stage2_c64")
-    stage2.launches += 1
+    _build.count_launch(stage2)
     return out
 
 
@@ -131,7 +131,7 @@ def stage2_rot(y: torch.Tensor, phi0: torch.Tensor, dphi: torch.Tensor,
         y.data_ptr(), out.data_ptr(), phi0.data_ptr(), dphi.data_ptr(),
         taps.ctypes.data, c, k2, d2, m2, stream)
     _build.check(err, "stage2_rot_c64")
-    stage2_rot.launches += 1
+    _build.count_launch(stage2_rot)
     return out
 
 

@@ -14,6 +14,7 @@ that no partial product reaches 2**49.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..numerology import PHASE_BITS
@@ -32,12 +33,25 @@ def freq_to_fcw(freq_hz: float, adc_clock_hz: float) -> int:
     return fcw % (1 << PHASE_BITS)
 
 
+def fcw_to_freq(fcw: int, adc_clock_hz: float) -> float:
+    """Inverse of :func:`freq_to_fcw` (principal value in [-fs/2, fs/2))."""
+    fcw = fcw % (1 << PHASE_BITS)
+    if fcw >= 1 << (PHASE_BITS - 1):
+        fcw -= 1 << PHASE_BITS
+    return fcw / (1 << PHASE_BITS) * adc_clock_hz
+
+
 def mul_mod48(n, d: torch.Tensor) -> torch.Tensor:
     """Exact ``(n * d) mod 2**48`` for int64 ``n``, ``d`` in [0, 2**48).
 
-    ``n`` is an int or an int64 tensor broadcasting against ``d``.
+    ``n`` is an int or an int64 tensor broadcasting against ``d``.  An
+    int stays a Python scalar operand (no host-to-device copy, so the
+    product can be recorded in a CUDA graph).
     """
-    n = torch.as_tensor(n, dtype=torch.int64, device=d.device)
+    if isinstance(n, (int, np.integer)):
+        n = int(n)
+    elif not isinstance(n, torch.Tensor):
+        n = torch.as_tensor(n, dtype=torch.int64, device=d.device)
     nl, nh = n & _MASK24, n >> 24
     dl, dh = d & _MASK24, d >> 24
     cross = (nl * dh + nh * dl) & _MASK24
@@ -74,6 +88,14 @@ def phase_ramp(phi0: torch.Tensor, dphi: torch.Tensor, num: int
     carry any ``num`` exactly.
     """
     return to_cycles(ramp_words(phi0, dphi, num))
+
+
+def tone(phi0: torch.Tensor, dphi: torch.Tensor, num: int) -> torch.Tensor:
+    """Complex exponential ``exp(+2j*pi*phase_ramp)`` as complex64, shape
+    ``(num,) + batch``, from int64 phase words (the reference's ``tone``
+    takes limbs)."""
+    ang = (2.0 * np.pi) * phase_ramp(phi0, dphi, num)
+    return torch.complex(torch.cos(ang), torch.sin(ang))
 
 
 def words_from_limbs(limbs) -> torch.Tensor:

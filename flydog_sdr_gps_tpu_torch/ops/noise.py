@@ -21,6 +21,7 @@ off.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -247,7 +248,7 @@ def spectral_nr_gains(params: SpectralNRParams, spec: torch.Tensor,
         f32(params.over_subtract), f32(params.gain_floor ** 2),
         f32(params.gain_floor), f32(a), f32(1 - a), stream)
     _build.check(err, "spectral_nr_c64")
-    spectral_nr_gains.launches += 1
+    _build.count_launch(spectral_nr_gains)
     return out.transpose(1, 2), sm, ring, xhat2
 
 
@@ -269,6 +270,14 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     return y.reshape((nfr + 1) * hop, c)
 
 
+@functools.lru_cache(maxsize=None)
+def _hann(fft: int, device: torch.device) -> torch.Tensor:
+    """The periodic Hann window of ``fft`` points on ``device``, made once
+    (a constant of the block program, not a copy a block)."""
+    return torch.as_tensor(np.hanning(fft + 1)[:fft].astype(np.float32),
+                           device=device)
+
+
 def spectral_nr_block(params: SpectralNRParams, x: torch.Tensor,
                       state: SpectralNRState
                       ) -> tuple[torch.Tensor, SpectralNRState]:
@@ -283,8 +292,7 @@ def spectral_nr_block(params: SpectralNRParams, x: torch.Tensor,
         raise ValueError(f"spectral NR needs N % {hop} == 0 and fft = 2*hop")
     xin = torch.cat([state.in_tail, x])
     frames = xin.unfold(0, fft, hop).transpose(1, 2)       # (nfr, fft, C)
-    win = torch.as_tensor(np.hanning(fft + 1)[:fft].astype(np.float32),
-                          device=x.device)
+    win = _hann(fft, x.device)
     spec = torch.fft.fft(frames * win[None, :, None], dim=1)
     spec = spec[:, :fft // 2 + 1]                           # one-sided
     shaped, psd_smooth, min_ring, xhat2 = spectral_nr_gains(params, spec,
@@ -441,7 +449,7 @@ def lms_chain_block(notch_p: LmsParams, den_p: LmsParams,
         n, c, notch_p.taps, notch_p.delay, notch_p.decay, notch_p.mu,
         den_p.decay, den_p.mu, stream)
     _build.check(err, "lms_chain_f32")
-    lms_chain_block.launches += 1
+    _build.count_launch(lms_chain_block)
     return y, LmsState(weights=wn, line=ln), LmsState(weights=wd, line=ld)
 
 

@@ -29,3 +29,10 @@ def smeter_block(z: torch.Tensor, level: torch.Tensor,
     filt = iir.one_pole_smoother(abs2(z), attack_alpha, level)
     dbm = 10.0 * torch.log10(filt + 1e-30) + DEFAULT_CAL_DBM
     return dbm, dbm.amax(dim=0), filt[-1]
+
+
+def smeter_wire(dbm: torch.Tensor) -> torch.Tensor:
+    """Encode dBm to the SND header's 16-bit field, ``(dBm + 127) * 10``
+    rounded half to even and clipped to [0, 65535], as int32."""
+    v = torch.round((dbm + 127.0) * 10.0)
+    return torch.clamp(v, 0, 65535).to(torch.int32)

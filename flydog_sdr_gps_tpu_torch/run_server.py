@@ -227,10 +227,11 @@ def build(args):
 async def prewarm(server, eng, max_listeners: int) -> None:
     """Prepare the serving path for every subscriber bucket up to
     ``max_listeners`` in the background and mark it warm, so that
-    neither the FIRST listener nor listener #9/#17/... waits.  On this
-    engine ``prewarm_gather`` has nothing to compile and returns at
-    once; buckets beyond the set are prepared off the serving path
-    (`KiwiServer._serve_bucket`)."""
+    neither the FIRST listener nor listener #9/#17/... waits.  On the
+    card ``prewarm_gather`` captures each bucket's serve program (the
+    first after a warm-up on scratch buffers); on the CPU it has
+    nothing to do.  Buckets beyond the set are prepared off the serving
+    path (`KiwiServer._serve_bucket`)."""
     if getattr(eng, "run_block_gather", None) is None:
         return          # no fused serving path: nothing to prepare
     loop = asyncio.get_running_loop()

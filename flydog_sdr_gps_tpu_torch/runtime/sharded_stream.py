@@ -46,8 +46,11 @@ class ShardedStreamEngine(StreamEngine):
         if mesh is None:
             mesh = distributed.make_global_mesh(time=time, chan=chan)
         self.mesh = mesh
+        # the eager step, as the reference's passes use_jit=False: the
+        # mesh step has no compiled program yet
         super().__init__(params, source,
-                         device=mesh.device(mesh.local_rows[0], 0))
+                         device=mesh.device(mesh.local_rows[0], 0),
+                         use_graphs=False)
         self._step = parallel.make_sharded_rx_step(params, mesh)
         self.state = parallel.shard_rx_state(self.state, mesh, params)
 

@@ -12,6 +12,14 @@ server unpacks it unchanged), which :meth:`StreamEngine.start_fetch`
 copies to pinned host memory without blocking, so that the copy runs
 while the next block is computed.  :meth:`save_state` and
 :meth:`load_state` checkpoint the streaming state.
+
+As the reference jits its step (``use_jit=True``), the engine on a card
+runs the compiled step (``use_graphs``, :func:`..models.rx_channel.
+jit_rx_block`): each block and each bucket's serving program is a CUDA
+graph replayed over buffers the step owns.  The engine's ``state`` and
+``tuning`` are those buffers; assigning either copies into them.  A
+block's taps and packed result are buffers too, overwritten by the next
+block.
 """
 
 from __future__ import annotations
@@ -54,13 +62,26 @@ class StreamEngine:
     block."""
 
     def __init__(self, params: rx.RxParams, source, *,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 use_graphs: bool | None = None):
+        """``use_graphs``: run the compiled step (the reference's
+        ``use_jit``); by default on a card, and not on the CPU, where
+        ``True`` runs the compiled step's static-buffer body with
+        nothing captured.  ``False`` is the eager step."""
         self.params = params
         self.source = source
         self.device = torch.device(device)
-        self.state = rx.init_state(params, self.device)
+        if use_graphs is None:
+            use_graphs = self.device.type == "cuda"
+        # the compiled step owns the state and tuning buffers; None: the
+        # eager step, whose state and tuning are rebound every block
+        self._compiled = (rx.jit_rx_block(params, self.device)
+                          if use_graphs else None)
+        self._gsteps: dict[int, ServeProgram] = {}
+        if self._compiled is None:
+            self.state = rx.init_state(params, self.device)
+            self.tuning = rx.default_tuning(params, self.device)
         self.ctl = [ChannelCtl() for _ in range(params.num_channels)]
-        self.tuning = rx.default_tuning(params, self.device)
         self.seq = 0
         self.block_ticks = 0            # 48-bit tick of block start
         self.subscribers: list[Callable] = []
@@ -77,6 +98,41 @@ class StreamEngine:
                         pin_memory=self.device.type == "cuda")
             for _ in range(2)]
         self._fetch_turn = 0
+
+    @property
+    def compiled(self) -> rx.CompiledRxBlock | None:
+        """The compiled step (its graphs, capture times and buffers), or
+        None for the eager engine."""
+        return self._compiled
+
+    # -- the state and tuning: on the compiled step, its own buffers -----
+    @property
+    def state(self) -> rx.RxState:
+        return self._state if self._compiled is None else self._compiled.state
+
+    @state.setter
+    def state(self, value: rx.RxState) -> None:
+        if self._compiled is None:
+            self._state = value
+        else:
+            rx.copy_into(self._compiled.state, value)
+
+    @property
+    def tuning(self) -> rx.RxTuning:
+        return (self._tuning if self._compiled is None
+                else self._compiled.tuning)
+
+    @tuning.setter
+    def tuning(self, value: rx.RxTuning) -> None:
+        if self._compiled is None:
+            self._tuning = value
+            return
+        step = self._compiled
+        rx.copy_into(step.tuning, value)
+        # the same buffers under the new gates (one reference swap, so a
+        # block in flight on another thread reads one gate tuple whole)
+        step.tuning = dataclasses.replace(
+            step.tuning, **{f: getattr(value, f) for f in rx.GATE_FIELDS})
 
     # -- control plane ---------------------------------------------------
     def set_channel(self, ch: int, **kwargs) -> None:
@@ -127,15 +183,25 @@ class StreamEngine:
             dphi1=torch.as_tensor(dphi, device=self.device))
 
     # -- data plane ------------------------------------------------------
-    def _advance(self) -> tuple[torch.Tensor, rx.RxTaps]:
-        """One source block through the block program."""
+    def _next_x(self) -> tuple[int, torch.Tensor]:
+        """The source's tick and next block on the device.  The block is
+        kept as ``_last_x`` (the waterfall's input): the source's own
+        tensor, which the next block does not overwrite."""
         ticks = getattr(self.source, "ticks", 0)
         x = self.source.next_block(self.params.ddc.adc_block)
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x).to(self.device)
         self._last_x = x            # raw block for waterfall taps
-        self.state, taps = rx.rx_block(self.params, self.state, self.tuning,
-                                       x)
+        return ticks, x
+
+    def _advance(self) -> tuple[torch.Tensor, rx.RxTaps]:
+        """One source block through the block program."""
+        ticks, x = self._next_x()
+        if self._compiled is None:
+            self.state, taps = rx.rx_block(self.params, self.state,
+                                           self.tuning, x)
+        else:
+            taps = self._compiled.block(x)
         self.block_ticks = ticks
         self.seq += 1
         return x, taps
@@ -162,9 +228,31 @@ class StreamEngine:
         audio is contiguous for the batched ADPCM encode.  ``peak`` is
         max|x| of the raw block.  Like the reference's fused program,
         this path runs no NaN health check and no subscriber fan-out.
+
+        On the compiled step the result is the bucket's result buffer,
+        which the bucket's next block overwrites: :meth:`start_fetch`
+        enqueues its copy on the same stream before the next replay, so
+        the copy reads this block's result (take it through
+        ``start_fetch`` before running another block).
         """
-        x, taps = self._advance()
-        return pack_columns(taps, x, idx)
+        if self._compiled is None:
+            x, taps = self._advance()
+            return pack_columns(taps, x, idx)
+        ticks, x = self._next_x()
+        packed = self._gstep_for(len(idx))(x, idx)
+        self.block_ticks = ticks
+        self.seq += 1
+        return packed
+
+    def _gstep_for(self, bucket: int) -> "ServeProgram":
+        """The ONE definition of the fused serve program per bucket size
+        (``run_block_gather`` and ``prewarm_gather`` share it, or the
+        prewarm would capture a program the serving path never runs)."""
+        prog = self._gsteps.get(bucket)
+        if prog is None:
+            prog = self._gsteps.setdefault(bucket, ServeProgram(
+                self._compiled, bucket, self.packed_len(bucket)))
+        return prog
 
     def packed_len(self, bucket: int) -> int:
         """Floats in :meth:`run_block_gather`'s result for one bucket."""
@@ -172,13 +260,16 @@ class StreamEngine:
         return 4 * bucket * p.audio_block + p.num_channels + 1
 
     def prewarm_gather(self, bucket: int) -> None:
-        """Prepare the serving path for one bucket size off the block
-        loop.  Nothing is left to prepare: there is no program to
-        compile, and the host buffers were pinned at the largest
-        bucket's length when the engine was made.  Kept because the
-        server calls it from a thread before it serves a new bucket; it
-        touches no engine state.
-        """
+        """Capture the fused serve program for one bucket size (for the
+        current gates) off the block loop: safe to call from a thread
+        while the loop runs blocks, because it never touches the engine
+        state (a warm-up, when one is needed, runs on scratch buffers).
+        Meanwhile no thread may synchronize the whole device (see
+        :meth:`CompiledRxBlock.prepare`).  The eager engine has nothing
+        to prepare: the host buffers were pinned at the largest bucket's
+        length when it was made."""
+        if self._compiled is not None:
+            self._gstep_for(bucket).prepare()
 
     def start_fetch(self, packed: torch.Tensor) -> "PackedFetch":
         """Begin copying a packed tensor to the host without blocking.
@@ -296,15 +387,63 @@ def pack_columns(taps: rx.RxTaps, x: torch.Tensor,
     taps' device: ``[audio rows | audio2 rows | iq_re rows | iq_im rows |
     smeter(C) | peak]``, the channels ``idx`` of each tap transposed to
     (len(idx), block) row-major; ``peak`` is max|x| of the raw block.
+    ``idx`` is a host array or an int64 tensor on the taps' device.
     This is :meth:`StreamEngine.run_block_gather`'s result, and what the
     server packs from ``run_block``'s taps for an engine without it."""
-    i = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
-                        device=taps.audio.device)
+    i = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(
+        np.asarray(idx), dtype=torch.int64, device=taps.audio.device)
     iq = taps.iq_post_agc.index_select(1, i)
     cols = [a.T.reshape(-1)
             for a in (taps.audio.index_select(1, i),
                       taps.audio2.index_select(1, i), iq.real, iq.imag)]
     return torch.cat(cols + [taps.smeter_dbm, x.abs().max().reshape(1)])
+
+
+class ServeProgram:
+    """The fused serve program of one bucket on a compiled step: the
+    block step, then :func:`pack_columns` of the bucket's channels (an
+    index buffer) into a result buffer of the packed length."""
+
+    def __init__(self, step: rx.CompiledRxBlock, bucket: int,
+                 packed_len: int):
+        self.step = step
+        self.bucket = bucket
+        self.idx = torch.zeros(bucket, dtype=torch.int64, device=step.device)
+        self.packed = torch.zeros(packed_len, dtype=torch.float32,
+                                  device=step.device)
+        self._idx_host = np.zeros(bucket, np.int64)
+
+    def body(self, state: rx.RxState, tuning: rx.RxTuning, x: torch.Tensor,
+             idx: torch.Tensor, packed: torch.Tensor) -> None:
+        taps = self.step.body(state, tuning, x)
+        packed.copy_(pack_columns(taps, x, idx))
+
+    def _live(self, tuning: rx.RxTuning) -> None:
+        s = self.step
+        self.body(s.state, tuning, s.x, self.idx, self.packed)
+
+    def __call__(self, x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+        """One served block of ``x`` for channels ``idx``; returns the
+        result buffer."""
+        idx = np.asarray(idx, np.int64)
+        if not np.array_equal(idx, self._idx_host):
+            # a new channel set (rare): the one host-to-device copy of a
+            # served block, outside the graph
+            self.idx.copy_(torch.from_numpy(idx))
+            self._idx_host = idx.copy()
+        self.step.x.copy_(x)
+        self.step.run(("gather", self.bucket), self._live)
+        return self.packed
+
+    def prepare(self) -> None:
+        """Capture this program without touching the live buffers."""
+        s = self.step
+
+        def warm(tuning):
+            self.body(rx.init_state(s.params, s.device), tuning,
+                      torch.zeros_like(s.x), torch.zeros_like(self.idx),
+                      torch.empty_like(self.packed))
+        s.prepare(("gather", self.bucket), self._live, warm)
 
 
 class PackedFetch:

@@ -798,8 +798,8 @@ class KiwiServer:
         # subscriber-bucket warm set: bucket sizes already served or
         # prepared.  A bucket growth (client #9 -> bucket 16) is
         # prepared OFF the serving path (`StreamEngine.prewarm_gather`,
-        # which has nothing to do on this engine and returns at once);
-        # until it's ready the loop keeps serving the largest warm
+        # which captures the bucket's serve program on a thread without
+        # touching the engine state); until it's ready the loop keeps serving the largest warm
         # bucket so live streams never stall mid-flight.
         self._warm_buckets: set[int] = set()
         self._bucket_compiling: int | None = None
@@ -1623,8 +1623,9 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         Needed bucket warm (or nothing warm yet, i.e. the very first
         block): use it.  Otherwise prepare the needed bucket in a
         background thread (`StreamEngine.prewarm_gather`, which
-        touches no engine state and, on this engine, returns at once)
-        and serve the best warm bucket meanwhile: the smallest warm
+        touches no engine state: on the card it captures the bucket's
+        serve program in a CUDA graph, in a capture mode local to that
+        thread, while the executor goes on replaying blocks) and serve the best warm bucket meanwhile: the smallest warm
         one that still fits every subscriber, else the largest warm
         one (a late joiner waits a block or two; nobody already
         streaming stalls)."""
@@ -1681,7 +1682,10 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         must go on the stream that ran the gather.  An engine without
         ``run_block_gather`` (the multi-device engine) runs ``run_block``
         and its taps' columns are packed in the same layout, the peak
-        from ``_last_x``."""
+        from ``_last_x``.  On the compiled engine the packed result is a
+        buffer that the next block overwrites: ``start_fetch`` enqueues
+        its copy on the same stream before any later block's replay, so
+        it copies this block's result."""
         gather = getattr(self.engine, "run_block_gather", None)
         if gather is None:
             taps = self.engine.run_block()

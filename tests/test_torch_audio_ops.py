@@ -129,6 +129,100 @@ def test_iir_ops_match_reference():
           LINEAR)
 
 
+def _loop_2(a1, a2, v, y1, y2):
+    """y[n] = a1*y[n-1] + a2*y[n-2] + v[n] in float64, one sample at a
+    time."""
+    y = np.zeros(v.shape)
+    for n in range(len(v)):
+        y[n] = a1 * y1 + a2 * y2 + v[n]
+        y1, y2 = y[n], y1
+    return y
+
+
+def test_linear_recurrence_2_matches_reference_and_loop():
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal((300, 5)).astype(np.float32)
+    y1, y2 = (rng.standard_normal(5).astype(np.float32) for _ in range(2))
+    # poles at radius 0.97 (a stable resonator, the biquad's regime)
+    a1, a2 = 2 * 0.97 * np.cos(0.3), -0.97 ** 2
+    got = tiir.linear_recurrence_2(a1, a2, tc(v), tc(y1), tc(y2))
+    ref = jiir.linear_recurrence_2(a1, a2, jnp.asarray(v), jnp.asarray(y1),
+                                   jnp.asarray(y2))
+    close(got, ref, LINEAR)
+    loop = _loop_2(np.float32(a1), np.float32(a2), v.astype(np.float64),
+                   y1.astype(np.float64), y2.astype(np.float64))
+    close(got, loop, LINEAR)
+    # per-sample coefficients as tensors
+    a1s = rng.uniform(0.2, 0.8, (300, 5)).astype(np.float32)
+    a2s = rng.uniform(-0.1, 0.1, (300, 5)).astype(np.float32)
+    close(tiir.linear_recurrence_2(tc(a1s), tc(a2s), tc(v), tc(y1), tc(y2)),
+          jiir.linear_recurrence_2(jnp.asarray(a1s), jnp.asarray(a2s),
+                                   jnp.asarray(v), jnp.asarray(y1),
+                                   jnp.asarray(y2)), LINEAR)
+
+
+def test_biquad_matches_reference_and_scipy():
+    """The reference's own test (``test_audio_ops.py``: against scipy's
+    lfilter at rtol 1e-3, atol 1e-4), then the reference itself."""
+    from scipy.signal import lfilter
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((512, 2)).astype(np.float32)
+    b, a = tiir.design_biquad_lowpass(FS, 300.0)
+    assert (b, a) == jiir.design_biquad_lowpass(FS, 300.0)
+    y, st = tiir.biquad(tc(x), b, a, torch.zeros((4, 2)))
+    np.testing.assert_allclose(y.numpy(), lfilter(b, a, x, axis=0),
+                               rtol=1e-3, atol=1e-4)
+    yr, sr = jiir.biquad(jnp.asarray(x), b, a, jnp.zeros((4, 2), jnp.float32))
+    close(y, yr, LINEAR)
+    close(st, sr, LINEAR)
+
+
+def test_biquad_streaming_continuity():
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((512, 2)).astype(np.float32)
+    b, a = tiir.design_biquad_lowpass(FS, 1000.0)
+    s = torch.zeros((4, 2))
+    y1, s = tiir.biquad(tc(x[:256]), b, a, s)
+    y2, s = tiir.biquad(tc(x[256:]), b, a, s)
+    whole, _ = tiir.biquad(tc(x), b, a, torch.zeros((4, 2)))
+    got = torch.cat([y1, y2]).numpy()
+    np.testing.assert_allclose(got, whole.numpy(), rtol=1e-3, atol=1e-4)
+    js = jnp.zeros((4, 2), jnp.float32)
+    r1, js = jiir.biquad(jnp.asarray(x[:256]), b, a, js)
+    r2, js = jiir.biquad(jnp.asarray(x[256:]), b, a, js)
+    close(got, np.concatenate([np.asarray(r1), np.asarray(r2)]), LINEAR)
+    close(s, js, LINEAR)
+
+
+def test_design_biquad_lowpass_equals_reference():
+    for fc, q in ((300.0, 0.7071), (1000.0, 0.5), (3000.0, 2.0)):
+        assert tiir.design_biquad_lowpass(FS, fc, q) == \
+            jiir.design_biquad_lowpass(FS, fc, q)
+
+
+def test_smeter_wire_matches_reference():
+    rng = np.random.default_rng(7)
+    dbm = np.concatenate([
+        rng.uniform(-140.0, 0.0, 64),
+        [-127.0, -200.0, 7000.0, -126.95, -126.85, -120.25, -13.0]]
+    ).astype(np.float32)
+    got = tsm.smeter_wire(tc(dbm))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jsm.smeter_wire(jnp.asarray(dbm))))
+
+
+def test_fir_freq_response_and_hop_equal_reference():
+    from flydog_sdr_gps_tpu.ops import filters as jfilters
+    from flydog_sdr_gps_tpu_torch.ops import filters as tfilters
+    rng = np.random.default_rng(8)
+    h = rng.standard_normal(31)
+    f = np.linspace(-6000.0, 6000.0, 97)
+    np.testing.assert_array_equal(tfilters.fir_freq_response(h, f, FS),
+                                  jfilters.fir_freq_response(h, f, FS))
+    assert tfir.HOP == jfir.HOP == tfir.FastFIRPlan().hop
+
+
 def test_smeter_matches_reference():
     rng = np.random.default_rng(1)
     z = iq(rng, 128, 8, scale=0.3)

@@ -11,7 +11,9 @@ AGC, SAM and LMS loops within 1e-4*max|ref| (where the plain version is
 finite; its NaN and infinities must be matched exactly); the
 spectral-NR recurrences within 1e-6 of each element; the two stage-2
 branches of ``rx_block`` within 2e-4*max|audio| + 5e-5; the served
-(gathered) block exactly its own ``run_block`` columns.
+(gathered) block exactly its own ``run_block`` columns; the compiled
+step (CUDA graphs) exactly the eager step, taps, served results and
+state.
 """
 
 import dataclasses
@@ -48,6 +50,12 @@ def test_stage1_refuses_tf32(card):
             chz.stage1_matmul(plan, x, bank)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _kept(taps):
+    """A copy of a block's taps that outlives the next block."""
+    return rx.RxTaps(**{f.name: getattr(taps, f.name).clone()
+                        for f in dataclasses.fields(taps)})
 
 
 def _gen(device, seed):
@@ -709,7 +717,9 @@ def test_rx3_engine_on_card_matches_cpu(card):
         eng.set_channel(0, freq_hz=7.1e6, mode=demod.MODE_AM, in_use=True)
         eng.set_channel(1, freq_hz=14.1946e6, mode=demod.MODE_USB,
                         in_use=True, passband=(200.0, 9000.0))
-        taps[str(dev)] = [eng.run_block() for _ in range(3)]
+        # kept past the next block: copied (the card's engine runs the
+        # compiled step, whose taps are buffers the next block overwrites)
+        taps[str(dev)] = [_kept(eng.run_block()) for _ in range(3)]
     for blk, (ref, got) in enumerate(zip(taps["cpu"], taps[str(card)])):
         assert got.audio.is_cuda and bool(torch.isfinite(got.audio).all())
         sm = (got.smeter_dbm.cpu() - ref.smeter_dbm)[:2]
@@ -827,3 +837,161 @@ def test_lms_block_on_card_matches_plain(card, notch):
     assert float((y - yr).abs().max()) <= 1e-4 * scale
     assert float((s.weights - sr.weights).abs().max()) <= 1e-4
     assert float((s.line - sr.line).abs().max()) <= 1e-4 * scale
+
+
+# -- the compiled step (CUDA graphs) ------------------------------------------
+
+_GRAPH_TONES = [(7.1e6, 0.3, ("am", 1000.0, 0.6)), (14.2018e6, 0.15)]
+
+
+def _graph_engine(card, use_graphs, c=64, block=256):
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    params = rx.RxParams(num_channels=c, audio_block=block)
+    src = DeviceSceneSource(tones=_GRAPH_TONES, noise_rms=1e-3,
+                            block=params.ddc.adc_block, device=card, seed=9)
+    eng = StreamEngine(params, src, device=card, use_graphs=use_graphs)
+    eng.set_channel(0, freq_hz=7.1e6, mode=demod.MODE_AM)
+    eng.set_channel(1, freq_hz=14.200e6, mode=demod.MODE_USB)
+    return eng
+
+
+# before block k: a SET that opens a gate, a retune, a reload
+_GRAPH_EVENTS = {
+    2: dict(ch=5, freq_hz=7.1003e6, mode=demod.MODE_SAS),
+    3: dict(ch=6, freq_hz=14.2001e6, nr_notch_on=True, nr_den_on=True),
+    4: dict(ch=7, freq_hz=7.0995e6, nr_on=True),
+    5: dict(ch=8, nb_on=True, nb_wild=True),
+    6: "retune_all",
+    7: "load_state",
+    8: dict(ch=5, mode=demod.MODE_USB),
+}
+
+
+def test_captured_step_equals_eager_on_card(card, tmp_path):
+    """Two engines from one state and one source, one compiled (a graph
+    per gate tuple) and one eager, through every gate, a retune and a
+    reload: taps and state equal to the bit in every block."""
+    from flydog_sdr_gps_tpu_torch.runtime.stream import _state_leaves
+    eager, graphs = (_graph_engine(card, False), _graph_engine(card, True))
+    assert graphs.compiled is not None and eager.compiled is None
+    for blk in range(10):
+        ev = _GRAPH_EVENTS.get(blk)
+        for eng in (eager, graphs):
+            if isinstance(ev, dict):
+                kw = dict(ev)
+                eng.set_channel(kw.pop("ch"), **kw)
+            elif ev == "retune_all":
+                eng.retune_all(eng.params.adc_clock * (1 + 4e-7))
+            elif ev == "load_state":
+                eager.save_state(str(tmp_path / "s.pkl"))
+                eng.load_state(str(tmp_path / "s.pkl"))
+        want, got = eager.run_block(), graphs.run_block()
+        for f in dataclasses.fields(want):
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name)), \
+                (blk, f.name)
+        for i, (g, w) in enumerate(zip(_state_leaves(graphs.state),
+                                       _state_leaves(eager.state))):
+            assert torch.equal(g, w), (blk, i)
+    keys = set(graphs.compiled.graphs)
+    assert len(keys) >= 5 and all(k[0] == "block" for k in keys)
+
+
+def test_launch_counters_credited_on_replay(card):
+    """A replayed block counts each wrapper's launches as the eager block
+    does; the capture itself counts none."""
+    counted = (kernels.stage2_rot, agc.envelope_scan, demod.sam_pll,
+               noise.lms_chain_block, noise.spectral_nr_gains)
+    per_block = {}
+    for use_graphs in (False, True):
+        eng = _graph_engine(card, use_graphs)
+        eng.set_channel(3, nr_notch_on=True, nr_on=True)
+        for fn in counted:
+            fn.launches = 0
+        for _ in range(5):
+            eng.run_block()
+        torch.cuda.synchronize()
+        per_block[use_graphs] = [fn.launches for fn in counted]
+    assert per_block[True] == per_block[False] == [5] * len(counted)
+
+
+def test_capture_from_a_second_thread_while_the_first_replays(card):
+    """``prewarm_gather`` captures a new bucket's program on a thread
+    while the first thread goes on serving blocks (replays); the new
+    bucket's first block is a replay, and every served result equals the
+    eager engine's to the bit."""
+    import threading
+    eager, graphs = (_graph_engine(card, False), _graph_engine(card, True))
+    small = np.array([0, 1, 2, 3], np.int32)
+    big = np.array([0, 1, 2, 3, 40, 41, 42, 63], np.int32)
+    errors = []
+
+    def prewarm():
+        try:
+            graphs.prewarm_gather(8)
+        except Exception as e:              # noqa: BLE001 — reported below
+            errors.append(e)
+    warm = None
+    for blk in range(8):
+        idx = small if blk < 5 else big
+        if blk == 1:
+            warm = threading.Thread(target=prewarm)
+            warm.start()
+        if blk == 5:
+            warm.join()
+            assert not errors, errors
+            key = ("gather", 8) + rx.gates(graphs.tuning)
+            assert key in graphs.compiled.graphs   # captured off the loop
+        got = graphs.fetch(graphs.run_block_gather(idx))
+        want = eager.fetch(eager.run_block_gather(idx))
+        np.testing.assert_array_equal(got, want, err_msg=f"block {blk}")
+    assert len(graphs.compiled.graphs) == 2
+
+
+def test_prewarm_on_a_cold_engine_warms_on_scratch_buffers(card):
+    """``prewarm_gather`` before any block (the server's boot): the
+    warm-up runs on scratch buffers (its launches counted apart), the
+    live state is untouched, and the first served block is a replay
+    equal to the eager engine's."""
+    from flydog_sdr_gps_tpu_torch.runtime.stream import _state_leaves
+    eager, graphs = (_graph_engine(card, False), _graph_engine(card, True))
+    graphs.set_channel(3, nr_notch_on=True, nr_on=True)
+    eager.set_channel(3, nr_notch_on=True, nr_on=True)
+    before = [t.clone() for t in _state_leaves(graphs.state)]
+    n = kernels.stage2_rot.launches
+    graphs.prewarm_gather(4)
+    torch.cuda.synchronize()
+    step = graphs.compiled
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, _state_leaves(graphs.state)))
+    assert step.warmup_launches[kernels.stage2_rot] == 1
+    assert step.warmup_launches[noise.lms_chain_block] == 1
+    assert kernels.stage2_rot.launches == n + 1
+    assert list(step.graphs) == [("gather", 4) + rx.gates(graphs.tuning)]
+    idx = np.array([0, 1, 3, 9], np.int32)
+    for _ in range(3):
+        got = graphs.fetch(graphs.run_block_gather(idx))
+        np.testing.assert_array_equal(
+            got, eager.fetch(eager.run_block_gather(idx)))
+    # the warm-up, three replays, and the eager engine's three blocks
+    assert kernels.stage2_rot.launches == n + 1 + 3 + 3
+    assert len(step.graphs) == 1
+
+
+def test_a_failed_capture_raises_and_never_runs_eagerly(card):
+    """A program whose capture fails (here: a host read of a device
+    value, which a capture refuses) raises, and every later run of that
+    key raises at once without running the body eagerly."""
+    step = rx.jit_rx_block(rx.RxParams(num_channels=4, audio_block=128),
+                           card)
+    calls = []
+
+    def body(tuning):
+        calls.append(1)
+        return float(step.state.smeter.sum())   # a sync: not capturable
+    with pytest.raises(RuntimeError):
+        step.run(("bad",), body)                # eager block, then capture
+    assert len(calls) == 2
+    with pytest.raises(RuntimeError, match="capture of"):
+        step.run(("bad",), body)
+    assert len(calls) == 2 and not step.graphs

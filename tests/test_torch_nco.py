@@ -30,6 +30,31 @@ def test_freq_to_fcw_matches_reference():
             jnco.freq_to_fcw(f, ADC_CLOCK_NOM)
 
 
+def test_fcw_to_freq_round_trip_matches_reference():
+    for f in (0.0, 10e6, 7.1234567e6, -3e6, 62.4e6, -62.5e6, 14.2018e6):
+        fcw = tnco.freq_to_fcw(f, ADC_CLOCK_NOM)
+        back = tnco.fcw_to_freq(fcw, ADC_CLOCK_NOM)
+        assert back == jnco.fcw_to_freq(fcw, ADC_CLOCK_NOM)
+        assert abs(back - f) < 1e-6
+    for w in (0, 1, M48 // 2 - 1, M48 // 2, M48 - 1, M48 + 5):
+        assert tnco.fcw_to_freq(w, ADC_CLOCK_NOM) == \
+            jnco.fcw_to_freq(w, ADC_CLOCK_NOM)
+
+
+def test_tone_matches_reference():
+    """Same phase words; cos/sin of float32 cycles that agree to 1 ulp
+    (2*pi * 2**-24 rad), so the samples within 2e-6."""
+    rng = np.random.default_rng(5)
+    phi, dphi = _random_words(rng, 6), _random_words(rng, 6)
+    got = tnco.tone(_words(phi), _words(dphi), 300)
+    assert got.dtype == torch.complex64 and got.shape == (300, 10)
+    ref = jnco.tone(jnco.to_limbs(phi), jnco.to_limbs(dphi), 300)
+    np.testing.assert_allclose(got.real.numpy(), np.asarray(ref.real),
+                               rtol=0, atol=2e-6)
+    np.testing.assert_allclose(got.imag.numpy(), np.asarray(ref.imag),
+                               rtol=0, atol=2e-6)
+
+
 @pytest.mark.parametrize("num", [1, 129, 16384])
 def test_ramp_words_bit_exact(num):
     rng = np.random.default_rng(num)
