@@ -189,6 +189,22 @@ What it does, in order (any failed check raises; exit code != 0):
    served; every result equal to the eager engine's, no served block
    over the block period, the first bucket-32 block a replay.
 
+11. The other compiled programs, each a CUDA graph over buffers its
+   owner keeps, against an eager instance of itself side by side on the
+   same inputs, at C=4096, audio_block=2048 (phases 3-10 run on them: the
+   card's default): (a) the scene source (phase 3's scene, phase 4's
+   4-FSK emitter, phase 8b's NAVTEX emitter, noise) for 8 blocks, then
+   the compiled block over an eager and over a compiled source (host ms
+   a block against the eager source's); (b) the waterfall, four slots (z0, z7,
+   z13, z14 of two blocks an ingest) fed the engine's blocks, a mask
+   change, rows equal, then a short phase-5 run for its fan-out ms; (c)
+   the GPS sky of phase 6a and a 12-row tracking step with its pack,
+   five 0.4 s chunks with noise 0 and with noise at the same generator
+   state; (d) the mesh step on phase 9a's (2, 2) mesh of the card (one
+   graph a block) for 8 blocks through a SET and ``retune_all``.  Each
+   equal to the bit; prints wall, host and device ms, capture ms and the
+   memory above the eager instance.
+
 Kernel 7's launch count is read around phases 3 to 6b and must be one a
 block in 4, 5 and 6b, where a lane has spectral NR on.  On the compiled
 engine a key's first block runs eagerly and each replay credits the
@@ -2736,18 +2752,23 @@ def kernel_counters():
             "spectral_nr": noise.spectral_nr_gains}
 
 
-def make_mesh_engine(torch, device, channels: int, block: int, scene=None):
+def make_mesh_engine(torch, device, channels: int, block: int, scene=None,
+                     use_graphs: bool | None = None,
+                     source_graphs: bool | None = None):
     """A ``ShardedStreamEngine`` over a MESH of ``device`` repeated, fed by
-    phase 3's scene on the card."""
+    phase 3's scene on the card (the compiled mesh step unless
+    ``use_graphs`` is False; the compiled source unless ``source_graphs``
+    is False)."""
     from flydog_sdr_gps_tpu_torch import parallel
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
     from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
                                                   ShardedStreamEngine)
     params = rx.RxParams(num_channels=channels, audio_block=block)
     src = DeviceSceneSource(tones=scene or SCENE, noise_rms=3e-4,
-                            block=params.ddc.adc_block, device=device)
+                            block=params.ddc.adc_block, device=device,
+                            use_graphs=source_graphs)
     mesh = parallel.make_mesh(*MESH, devices=[device] * (MESH[0] * MESH[1]))
-    return ShardedStreamEngine(params, src, mesh=mesh)
+    return ShardedStreamEngine(params, src, mesh=mesh, use_graphs=use_graphs)
 
 
 def mesh_events(torch, eng, b: int) -> float | None:
@@ -3316,6 +3337,320 @@ def phase_compiled(torch, device, channels: int, block: int,
                 prewarm_capture_ms=prep_ms, block_period_ms=block_ms)
 
 
+PROGRAM_BLOCKS = 8          # 11a, 11b, 11d: blocks of each instance
+PROGRAM_CHUNKS = 5          # 11c: 0.4 s chunks a sky
+
+
+def reserved_gb(torch) -> float:
+    """Device memory the caching allocator holds, caches emptied."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 1e9
+
+
+def held_gb(torch, instances: dict) -> dict:
+    """The device memory each of ``instances`` holds, in GB: what the
+    caching allocator gives back to the card when it is dropped
+    (``reserved``: its tensors' segments and its graphs' pools) and the
+    bytes of its live tensors (``allocated``; a graph pool's blocks are
+    not live between replays), one after another in the dict's order
+    (the dict is emptied).  The caller drops every other reference
+    first (its outputs too)."""
+    import gc
+    held = {}
+    for key in list(instances):
+        before = (reserved_gb(torch), torch.cuda.memory_allocated() / 1e9)
+        del instances[key]
+        gc.collect()
+        after = (reserved_gb(torch), torch.cuda.memory_allocated() / 1e9)
+        held[key] = {"reserved": before[0] - after[0],
+                     "allocated": before[1] - after[1]}
+    return held
+
+
+def above_eager(held: dict) -> float:
+    """GB of the card the compiled instance (key True) holds beyond the
+    eager one."""
+    return held[True]["reserved"] - held[False]["reserved"]
+
+
+def steady_median(rows: list, first: int = 2) -> dict:
+    """Median wall, host and device ms over ``rows`` (wall, host, device)
+    after the ``first`` (the eager run and capture of a key)."""
+    rest = rows[first:] or rows
+    return {name: statistics.median(r[i] for r in rest)
+            for i, name in enumerate(("wall_ms", "host_ms", "device_ms"))}
+
+
+def capture_ms(graphs: dict) -> dict:
+    return {"/".join(str(v) for v in k): round(g.capture_ms, 3)
+            for k, g in graphs.items()}
+
+
+def phase_programs(torch, device, channels: int, block: int,
+                   gps_chunk_s: float = 0.4) -> dict:
+    """11: the compiled programs beside the block step, each against an
+    eager instance of itself run side by side on the same inputs."""
+    out = {}
+    counters = kernel_counters()
+    from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  StreamEngine)
+    from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+    params = rx.RxParams(num_channels=channels, audio_block=block)
+    n = params.ddc.adc_block
+
+    # -- (a) the scene source, and the compiled block over it ----------
+    from flydog_sdr_gps_tpu_torch.extensions import navtex
+    symbols = np.random.default_rng(162).integers(0, 4, 162).tolist()
+    bits = navtex_bits(navtex.encode_text(NAVTEX_TEXT))
+    tones = SCENE + [
+        FSK_TONE + (("fsk", 8192, 12000 / 8192, symbols, 200),),
+        (NAVTEX_KHZ * 1e3 + 1000.0, 0.05,
+         ("fsk", 120, 170.0, bits, len(bits) + 200))]
+
+    def source(use_graphs):
+        return DeviceSceneSource(tones=tones, noise_rms=3e-4, block=n,
+                                 device=device, seed=7,
+                                 use_graphs=use_graphs)
+    srcs = {True: source(True), False: source(False)}
+    rows = {"eager": [], "graphs": []}
+    equal = True
+    for b in range(PROGRAM_BLOCKS):
+        got, *t_g = timed_block(torch, srcs[True].next_block)
+        want, *t_e = timed_block(torch, srcs[False].next_block)
+        rows["eager"].append(t_e)
+        rows["graphs"].append(t_g)
+        equal &= bool(torch.equal(got, want))
+        check(bool(torch.isfinite(got).all()), "11a: a non-finite block")
+    check(equal, "11a: the compiled source differs from the eager one")
+    out["source"] = dict(
+        equal=equal, blocks=PROGRAM_BLOCKS,
+        ms={k: steady_median(v) for k, v in rows.items()},
+        capture_ms=capture_ms(srcs[True].graphs),
+        fsk_rows=srcs[True]._fsk_cap)
+    del want, got
+    held = held_gb(torch, srcs)
+    out["source"].update(memory_gb=held, memory_above_eager_gb=above_eager(
+        held))
+    # the compiled block (phase 10a's engine) over each source
+    engines = {}
+    for name, use in (("eager_source", False), ("compiled_source", True)):
+        src = DeviceSceneSource(tones=SCENE, noise_rms=3e-4, block=n,
+                                device=device, use_graphs=use)
+        engines[name] = tune_slice(StreamEngine(params, src, device=device))
+    rows = {k: [] for k in engines}
+    for fn in counters.values():
+        fn.launches = 0                     # the path's run starts
+    for b in range(PROGRAM_BLOCKS):
+        taps = {}
+        for name, eng in engines.items():
+            t, *ms = timed_block(torch, eng.run_block)
+            rows[name].append(ms)
+            taps[name] = t.audio.clone()
+        check(bool(torch.equal(taps["eager_source"],
+                               taps["compiled_source"])),
+              "11a: the blocks over the two sources differ")
+    out["launches_block"] = {k: fn.launches for k, fn in counters.items()}
+    out["block"] = {k: steady_median(v) for k, v in rows.items()}
+    del engines, taps
+    between_phases(torch)
+
+    # -- (b) the waterfall: four slots, one a two-block zoom -----------
+    # the eager twin: the port's eager arithmetic on a state of its own
+    from flydog_sdr_gps_tpu_torch.models import waterfall as wf_model
+    eng = make_engine(torch, device, channels, block, "fused")
+    keys = [(0, "cma"), (7, "max"), (13, "min"), (14, "cma")]
+    hz = 30.0e6 / (1024 << 14)
+    wf = WfSubsystem(eng.params.adc_clock, 30.0e6, capacity=4, device=device)
+    slots = [wf.attach(z, int((10.0e6 - 30.0e6 / (2 << z)) / hz), i)
+             for z, i in keys]
+    check(slots[3].params.ingest_blocks(n) == 2,
+          "11b: z14 does not take two blocks")
+    twins = [dict(st=wf_model.init_state(s.params, device), acc=[],
+                  tune=tuple(t.clone() for t in s.tune)) for s in slots]
+
+    def eager_ingest():
+        for s, e in zip(slots, twins):
+            e["acc"].append(eng._last_x.clone())
+            if len(e["acc"]) == s.params.ingest_blocks(n):
+                e["st"] = wf_model.wf_ingest(s.params, e["st"],
+                                             torch.cat(e["acc"]), *e["tune"])
+                e["acc"] = []
+
+    def eager_rows():
+        return [wf_model.wf_frame(s.params, e["st"], "hanning", s.interp,
+                                  mask=wf._device_mask(s.cf, s.params.span)
+                                  ).cpu().numpy()
+                for s, e in zip(slots, twins)]
+    rows = {"eager": [], "graphs": []}
+    row_ms = {"eager": [], "graphs": []}
+    equal = True
+    for b in range(PROGRAM_BLOCKS):
+        if b == 5:
+            wf.set_masked([(9.99e6, 10.01e6)])
+        eng.run_block()
+        _, *ms = timed_block(torch, eager_ingest)
+        rows["eager"].append(ms)
+        t0 = time.perf_counter()
+        want = eager_rows()
+        row_ms["eager"].append((time.perf_counter() - t0) * 1e3)
+        _, *ms = timed_block(torch, lambda: wf.ingest(eng._last_x,
+                                                      eng._x_ready))
+        rows["graphs"].append(ms)
+        t0 = time.perf_counter()
+        got = [wf.frame(s) for s in slots]
+        row_ms["graphs"].append((time.perf_counter() - t0) * 1e3)
+        equal &= all(np.array_equal(a, c) for a, c in zip(got, want))
+        for r in got:
+            check(bool(np.isfinite(r).all()), "11b: a non-finite row")
+    check(equal, "11b: the compiled waterfall's rows differ from eager")
+    out["waterfall"] = dict(
+        equal=equal, blocks=PROGRAM_BLOCKS,
+        ms={k: steady_median(v) for k, v in rows.items()},
+        frame_ms={k: statistics.median(v[2:]) for k, v in row_ms.items()},
+        capture_ms=capture_ms(wf.graphs))
+    instances = {True: (wf, slots), False: twins}
+    del got, want, wf, slots, twins
+    held = held_gb(torch, instances)
+    out["waterfall"].update(memory_gb=held,
+                            memory_above_eager_gb=above_eager(held))
+    del eng
+    between_phases(torch)
+    log("  11b: a short phase-5 run for the fan-out (8 blocks)")
+    srv = phase_server(torch, device, channels=channels, block=block,
+                       nblocks=8)
+    out["waterfall"]["server_fanout_ms_per_block"] = srv["fanout_ms_per_block"]
+    out["waterfall"]["server_realtime_factor"] = srv["realtime_factor"]
+    del srv
+    between_phases(torch)
+
+    # -- (c) the GPS sky and the tracking step -------------------------
+    from flydog_sdr_gps_tpu_torch.models.gps import manager, scene, tracking
+    rx_ = scene.ecef_from_lla(*GPS_LLA)
+    ephs = scene.visible_constellation(rx_, GPS_T0, n_sats=8)
+    gal = scene.visible_galileo(rx_, GPS_T0, n_sats=4)
+    chunk = int(round(gps_chunk_s * tracking.TrackParams().fs))
+    gps = {}
+    for noise_ in (0.0, 0.9):
+        skies = {g: scene.GpsScene(rx_, ephs, GPS_T0, duration=60.0,
+                                   clock_ppm=GPS_PPM, noise=noise_,
+                                   amplitude=0.5, galileo_ephemerides=gal,
+                                   device=device, use_graphs=g)
+                 for g in (False, True)}
+        mgrs = {g: manager.GpsManager(prns=tuple(ephs) + GPS_DECOYS,
+                                      galileo_prns=tuple(gal), device=device,
+                                      use_graphs=g) for g in (False, True)}
+        rows = {g: {"sky": [], "process": []} for g in skies}
+        tracking.track_epochs.launches = 0
+        equal = True
+        for c in range(PROGRAM_CHUNKS):
+            xs = {}
+            for g in skies:
+                xs[g], *ms = timed_block(
+                    torch, lambda: skies[g].next_block(chunk))
+                rows[g]["sky"].append(ms)
+            equal &= bool(torch.equal(xs[True], xs[False]))
+            for g in skies:
+                _, *ms = timed_block(
+                    torch, lambda: mgrs[g].process(xs[g], search=c == 0))
+                rows[g]["process"].append(ms)
+            equal &= set(mgrs[True].channels) == set(mgrs[False].channels)
+            equal &= all(ch.chips == mgrs[False].channels[p].chips
+                         for p, ch in mgrs[True].channels.items())
+            equal &= all(torch.equal(a, b) for a, b in zip(
+                _tensors(mgrs[True]._track_state),
+                _tensors(mgrs[False]._track_state)))
+        check(equal, f"11c: the compiled sky or tracking step differs "
+              f"(noise {noise_})")
+        check(len(mgrs[True].channels) >= 4,
+              f"11c: {len(mgrs[True].channels)} rows tracking")
+        gps[f"noise_{noise_}"] = dict(
+            equal=equal, chunks=PROGRAM_CHUNKS,
+            rows=len(mgrs[True].channels),
+            ms={("graphs" if g else "eager"): {
+                k: steady_median(v, first=1) for k, v in r.items()}
+                for g, r in rows.items()},
+            capture_ms=dict(**capture_ms(skies[True].graphs),
+                            **capture_ms(mgrs[True]._graphs.graphs)),
+            gps_track_launches=tracking.track_epochs.launches)
+        del xs
+        held = held_gb(torch, {g: (skies.pop(g), mgrs.pop(g))
+                               for g in (True, False)})
+        gps[f"noise_{noise_}"].update(memory_gb=held,
+                                      memory_above_eager_gb=above_eager(held))
+    out["gps"] = gps
+    out["launches_gps"] = gps["noise_0.9"]["gps_track_launches"]
+    between_phases(torch)
+
+    # -- (d) the mesh step ---------------------------------------------
+    # both over an uncompiled source, so that what each holds beyond the
+    # other is its mesh step's
+    meshes = {g: make_mesh_engine(torch, device, channels, block,
+                                  use_graphs=g, source_graphs=False)
+              for g in (True, False)}
+    for e in meshes.values():
+        tune_slice(e)
+    check(meshes[True].program is not None and meshes[True].program.whole,
+          "11d: the one-card mesh is not one program")
+    rows = {False: [], True: []}
+    launches = {False: [], True: []}
+    equal = True
+    for fn in counters.values():
+        fn.launches = 0                     # the path's run starts
+    mesh_launches = None
+    for b in range(PROGRAM_BLOCKS):
+        taps = {}
+        for g, e in meshes.items():
+            mesh_events(torch, e, b)
+            before = {k: fn.launches for k, fn in counters.items()}
+            t, *ms = timed_block(torch, e.run_block)
+            rows[g].append(ms)
+            launches[g].append({k: fn.launches - before[k]
+                                for k, fn in counters.items()})
+            taps[g] = [getattr(t, f.name).clone()
+                       for f in dataclasses.fields(t)]
+        equal &= all(torch.equal(a, c) for a, c in zip(taps[True],
+                                                        taps[False]))
+        equal &= all(torch.equal(a, c) for a, c in zip(
+            _tensors(meshes[True].state), _tensors(meshes[False].state)))
+    check(equal, "11d: the compiled mesh step differs from the eager one")
+    check(launches[True] == launches[False],
+          f"11d: launches a block differ: {launches}")
+    mesh_launches = {k: sum(l[k] for l in launches[True])
+                     for k in counters}
+    prog = meshes[True].program
+    graphs = {k: g for gs in prog._graphs.values() for k, g in
+              gs.graphs.items()}
+    replays = PROGRAM_BLOCKS - len(graphs)
+    out["mesh"] = dict(
+        equal=equal, blocks=PROGRAM_BLOCKS, path="one graph a block (whole)",
+        ms={("graphs" if g else "eager"): steady_median(v)
+            for g, v in rows.items()},
+        launches_per_block=launches[True][-1], graph_replays=replays,
+        replays_per_block=1, graphs=len(graphs),
+        capture_ms=capture_ms(graphs))
+    out["launches_mesh"] = mesh_launches
+    del prog, graphs, taps, t, e
+    held = held_gb(torch, meshes)
+    out["mesh"].update(memory_gb=held, memory_above_eager_gb=above_eager(held))
+    return out
+
+
+def _tensors(obj) -> list:
+    """Every tensor of nested dataclasses and lists, in order."""
+    if obj is None:
+        return []
+    if hasattr(obj, "data_ptr"):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in _tensors(x)]
+    if not dataclasses.is_dataclass(obj):
+        return []
+    return [t for f in dataclasses.fields(obj)
+            for t in _tensors(getattr(obj, f.name))]
+
+
 def between_phases(torch) -> None:
     """Free what the last phase left (its engines and servers hold
     reference cycles, and each compiled engine a graph memory pool)
@@ -3467,7 +3802,9 @@ def main(argv: list[str]) -> int:
     log(f"  per-block ms: {[round(v, 2) for v in sr['ms_blocks']]}")
     log(f"  host ms a block: encode {sr['encode_ms_per_block']:.3f}, fan-out "
         f"(framing, queues, extension, waterfall rows) "
-        f"{sr['fanout_ms_per_block']:.3f}; what the event loop loses: a "
+        f"{sr['fanout_ms_per_block']:.3f} (with an eager source and a "
+        f"waterfall on the engine's stream: 51.0-62.0); what the "
+        f"event loop loses: a "
         f"5 ms sleep came back late by mean {sr['loop_lag_ms']['mean']:.3f} "
         f"ms, p99 {sr['loop_lag_ms']['p99']:.3f}, max "
         f"{sr['loop_lag_ms']['max']:.3f} ({sr['loop_lag_ms']['n']} sleeps); "
@@ -3605,6 +3942,64 @@ def main(argv: list[str]) -> int:
         f"{cmp['replayed_block']['device_ops']}, "
         f"{cmp['replayed_block']['device_ms']:.3f} ms  [{card}]")
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s of wall time")
+    t11 = time.perf_counter()
+    between_phases(torch)
+    log("phase 11: the other compiled programs (CUDA graphs) against eager "
+        "instances of themselves, C=4096, audio_block=2048")
+    prg = phase_programs(torch, device, channels=4096, block=2048)
+
+    def fmt(m):
+        return (f"wall {m['wall_ms']:.3f} / host {m['host_ms']:.3f} / device "
+                f"{m['device_ms']:.3f} ms")
+
+    def fmt_mem(part):
+        held = part["memory_gb"]
+        return (f"memory held (reserved / live tensors): compiled "
+                f"{held[True]['reserved']:.3f} / "
+                f"{held[True]['allocated']:.3f} GB, eager "
+                f"{held[False]['reserved']:.3f} / "
+                f"{held[False]['allocated']:.3f} GB, above eager "
+                f"{part['memory_above_eager_gb']:.3f} GB")
+    src = prg["source"]
+    log(f"  11a source ({src['blocks']} blocks, FSK segment rows "
+        f"{src['fsk_rows']}, noise): equal to the bit; next_block eager "
+        f"{fmt(src['ms']['eager'])}, compiled {fmt(src['ms']['graphs'])}; "
+        f"capture ms {src['capture_ms']}; {fmt_mem(src)}  [{card}]")
+    blk = prg["block"]
+    log(f"  11a compiled run_block over the eager source "
+        f"{fmt(blk['eager_source'])}, over the compiled source "
+        f"{fmt(blk['compiled_source'])} (measured before the source was "
+        f"compiled: host "
+        f"10.391 / 10.550 ms)  [{card}]")
+    wfr = prg["waterfall"]
+    log(f"  11b waterfall (z0, z7, z13, z14 of two blocks; a mask change): "
+        f"rows equal to the bit; ingest eager (wf_ingest) "
+        f"{fmt(wfr['ms']['eager'])}, compiled {fmt(wfr['ms']['graphs'])} "
+        f"(wall and host; the work runs on the chains' stream); four rows' "
+        f"frame() ms eager {wfr['frame_ms']['eager']:.3f}, compiled "
+        f"{wfr['frame_ms']['graphs']:.3f}; capture ms {wfr['capture_ms']}; "
+        f"{fmt_mem(wfr)}; a short "
+        f"phase-5 run: fan-out {wfr['server_fanout_ms_per_block']:.3f} ms a "
+        f"block (with an eager source: 51.0-62.0), factor "
+        f"{wfr['server_realtime_factor']}  [{card}]")
+    for name, gp in prg["gps"].items():
+        log(f"  11c GPS {name} ({gp['chunks']} chunks of 0.4 s, {gp['rows']}"
+            f" rows): sky and tracking equal to the bit; sky eager "
+            f"{fmt(gp['ms']['eager']['sky'])}, compiled "
+            f"{fmt(gp['ms']['graphs']['sky'])}; process eager "
+            f"{fmt(gp['ms']['eager']['process'])}, compiled "
+            f"{fmt(gp['ms']['graphs']['process'])}; capture ms "
+            f"{gp['capture_ms']}; {fmt_mem(gp)}  [{card}]")
+    msh = prg["mesh"]
+    log(f"  11d mesh step ({MESH} mesh of the card, {msh['blocks']} blocks, "
+        f"a SET and a retune_all; path: {msh['path']}): taps and state equal "
+        f"to the bit; eager {fmt(msh['ms']['eager'])}, compiled "
+        f"{fmt(msh['ms']['graphs'])}; kernel launches a block "
+        f"{msh['launches_per_block']}, {msh['graphs']} graph(s), "
+        f"{msh['graph_replays']} replays ({msh['replays_per_block']} a "
+        f"block); capture ms {msh['capture_ms']}; {fmt_mem(msh)}  "
+        f"[{card}]")
+    log(f"  phase 11 took {time.perf_counter() - t11:.1f} s of wall time")
     summary = dict(card=card, build_s=_build.build_seconds, ddc=ddc,
                    server=sr, gps=g, server_gps=srg, slice_20k=s3b,
                    server_autorun={k: v for k, v in sra.items()
@@ -3612,7 +4007,7 @@ def main(argv: list[str]) -> int:
                    server_control=srn, decoders=dec,
                    host_decoders=hdec, navtex_server=nav, mesh=mesh,
                    mesh_server=msrv, stage2_fft=s2f, lms_block=lmsb,
-                   compiled=cmp,
+                   compiled=cmp, programs=prg,
                    slice={k: v for k, v in sl.items() if k != "profile"},
                    serve={k: v for k, v in sv.items() if k != "profile"},
                    kernels=kern)
@@ -3629,7 +4024,10 @@ def main(argv: list[str]) -> int:
              "gps": {"gps_track": g["launches"]},
              "server_gps": srg["launches"],
              "navtex_server": nav["launches"], "mesh": mesh["launches"],
-             "mesh_server": msrv["launches"], "compiled": cmp["launches"]}
+             "mesh_server": msrv["launches"], "compiled": cmp["launches"],
+             "programs_block": prg["launches_block"],
+             "programs_gps": {"gps_track": prg["launches_gps"]},
+             "programs_mesh": prg["launches_mesh"]}
 
     def per_block(name):
         if name == "gps_track":

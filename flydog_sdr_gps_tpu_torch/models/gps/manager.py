@@ -40,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ... import _graphs
 from ...numerology import (ADC_CLOCK_NOM, CA_CHIP_RATE, E1B_CODELEN,
                            GALILEO_PRN_BASE, GPS_FS, GPS_MAX_CHANS,
                            L1_CODELEN)
@@ -129,10 +130,19 @@ class GpsManager:
                  on_clock=None,
                  adc_clock_nom: float = ADC_CLOCK_NOM,
                  galileo_prns: tuple[int, ...] = (),
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 use_graphs: bool | None = None):
         # the card unless the caller asks for the CPU: the tracking
         # state, the code table and acquisition live there
         self.device = torch.device(device)
+        # the tracking step and its pack as one program over buffers (a
+        # CUDA graph per capacity and epochs a chunk; the reference jits
+        # it); by default on a card; on the CPU True runs the same
+        # static-buffer body with nothing captured
+        if use_graphs is None:
+            use_graphs = self.device.type == "cuda"
+        self._graphs = _graphs.GraphSet(self.device) if use_graphs else None
+        self._track_bufs: dict[int, tuple] = {}   # per epochs a chunk
         self.acq = acq_params or acquisition.AcqParams()
         self.tp = track_params or tracking.TrackParams()
         self.max_chans = max_chans
@@ -293,15 +303,61 @@ class GpsManager:
                                 device=self.device)
         self._advance_tracked(raw_e, n_ep)
 
+    # -- the tracking state: buffers a compiled step reads ----------------
+    @property
+    def _track_state(self) -> tracking.TrackState:
+        return self._tstate
+
+    @_track_state.setter
+    def _track_state(self, value: tracking.TrackState) -> None:
+        # the first assignment makes the buffers; later ones copy into
+        # them (activating a row writes the same tensors in place)
+        if getattr(self, "_tstate", None) is None:
+            self._tstate = value
+        else:
+            _graphs.copy_into(self._tstate, value)
+
+    @property
+    def _code_table(self) -> torch.Tensor:
+        return self._ctable
+
+    @_code_table.setter
+    def _code_table(self, value: torch.Tensor) -> None:
+        if getattr(self, "_ctable", None) is None:
+            self._ctable = value
+        else:
+            _graphs.copy_into(self._ctable, value)
+
+    def _track_step(self, raw_e: torch.Tensor) -> torch.Tensor:
+        """Kernel 6 over ``raw_e`` (n_ep, epoch), then its outputs packed
+        [ip | qp | ip_pre | code_phase (n_ep, nch) each | end code_phase
+        (nch)] in ONE tensor: one copy to the host a chunk."""
+        _, outs = tracking.track_epochs(self.tp, self._track_state,
+                                        self._code_table, raw_e)
+        return torch.cat([outs["ip"].reshape(-1), outs["qp"].reshape(-1),
+                          outs["ip_pre"].reshape(-1),
+                          outs["code_phase"].reshape(-1),
+                          self._track_state.code_phase.reshape(-1)])
+
     def _advance_tracked(self, raw_e, n_ep: int) -> None:
-        self._track_state, outs = tracking.track_epochs(
-            self.tp, self._track_state, self._code_table, raw_e)
-        # [ip | qp | ip_pre | code_phase (n_ep, nch) each | end
-        # code_phase (nch)] in ONE tensor: one copy to the host a chunk
-        packed = torch.cat([outs["ip"].reshape(-1), outs["qp"].reshape(-1),
-                            outs["ip_pre"].reshape(-1),
-                            outs["code_phase"].reshape(-1),
-                            self._track_state.code_phase.reshape(-1)])
+        if self._graphs is None:
+            packed = self._track_step(raw_e)
+        else:
+            # the compiled step: the chunk copied into the program's
+            # input buffer, the step replayed into its result buffer
+            bufs = self._track_bufs.get(n_ep)
+            if bufs is None:
+                nch = self._track_state.code_phase.shape[0]
+                bufs = self._track_bufs[n_ep] = (
+                    torch.zeros(raw_e.shape, dtype=torch.float32,
+                                device=self.device),
+                    torch.zeros((4 * n_ep + 1) * nch, dtype=torch.float32,
+                                device=self.device))
+            raw_buf, packed = bufs
+            raw_buf.copy_(raw_e)
+            self._graphs.run(
+                ("track", packed.numel() // (4 * n_ep + 1), n_ep),
+                lambda: packed.copy_(self._track_step(raw_buf)))
         flat = packed.cpu().numpy()       # ONE device fetch
         nch = (len(flat) - 0) // (4 * n_ep + 1)
         nb = n_ep * nch

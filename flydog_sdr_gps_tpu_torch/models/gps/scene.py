@@ -33,6 +33,7 @@ import math
 import numpy as np
 import torch
 
+from ... import _graphs
 from ...numerology import (CA_CHIP_RATE, E1B_CODELEN, GALILEO_PRN_BASE,
                            GPS_FC, GPS_FS, L1_CODELEN)
 from . import cacode, ephemeris, galileo, solver
@@ -240,13 +241,22 @@ class GpsScene:
                  seed: int = 0,
                  galileo_ephemerides: dict[int, ephemeris.Ephemeris]
                  | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 use_graphs: bool | None = None):
         # "host": the float64 host path (numpy blocks); a torch device
-        # (or its name): the device path there ("cpu" in the tests)
+        # (or its name): the device path there ("cpu" in the tests).
+        # use_graphs (the device path; by default on a card): each
+        # chunk's synthesis is a program over buffers the scene owns, a
+        # CUDA graph per chunk length (the reference jits it); on the CPU
+        # True runs the same static-buffer body with nothing captured
         self.device = device
         self._dev = None if device == "host" else torch.device(device)
         self._dev_consts = None
         self._dev_gen = None
+        self._use_graphs = (self._dev is not None and self._dev.type == "cuda"
+                            if use_graphs is None else use_graphs)
+        self._graphs = None
+        self._sky: dict[int, dict] = {}     # buffers per epochs a chunk
         self.rx = np.asarray(rx_ecef, float)
         self.fs = fs
         self.fc = fc
@@ -317,6 +327,57 @@ class GpsScene:
         self._dev_consts = (torch.as_tensor(codes, device=dev), lens)
         self._dev_gen = torch.Generator(device=dev)
         self._dev_gen.manual_seed(self._seed)
+        if self._use_graphs:
+            self._graphs = _graphs.GraphSet(dev, generators=(self._dev_gen,))
+
+    @property
+    def graphs(self) -> dict:
+        """The compiled sky's graphs ({} on the CPU or eager)."""
+        return {} if self._graphs is None else self._graphs.graphs
+
+    def _synth_compiled(self, epoch: int, coeffs: list[np.ndarray],
+                        words: list[np.ndarray]) -> torch.Tensor:
+        """The chunk as a program over buffers (one set a chunk length):
+        the five float32 coefficient arrays ``coeffs`` (ph0, dph, flip_s,
+        bit_a, bit_b) and the two int64 ``words`` (i0, s0) written into
+        one of two pinned buffers and copied without blocking on the
+        current stream, then :meth:`_synth` into the output buffer."""
+        n_ep, ns = coeffs[0].shape
+        dev = self._dev
+        b = self._sky.get(n_ep)
+        if b is None:
+            pin = dev.type == "cuda"
+            b = self._sky[n_ep] = dict(
+                f=torch.zeros((5, n_ep, ns), dtype=torch.float32, device=dev),
+                i=torch.zeros((2, n_ep, ns), dtype=torch.int64, device=dev),
+                out=torch.zeros(n_ep * epoch, dtype=torch.float32,
+                                device=dev),
+                host=[[torch.zeros((5, n_ep, ns), dtype=torch.float32,
+                                   pin_memory=pin),
+                       torch.zeros((2, n_ep, ns), dtype=torch.int64,
+                                   pin_memory=pin), None]
+                      for _ in range(2)],
+                turn=0)
+        entry = b["host"][b["turn"]]
+        b["turn"] ^= 1
+        if entry[2] is not None:
+            entry[2].synchronize()      # the card has read this buffer
+        entry[0].numpy()[:] = np.stack([np.asarray(a, np.float32)
+                                        for a in coeffs])
+        entry[1].numpy()[:] = np.stack([np.asarray(a, np.int64)
+                                        for a in words])
+        b["f"].copy_(entry[0], non_blocking=True)
+        b["i"].copy_(entry[1], non_blocking=True)
+        if dev.type == "cuda":
+            entry[2] = torch.cuda.Event()
+            entry[2].record(torch.cuda.current_stream(dev))
+        f, i = b["f"], b["i"]
+
+        def body():
+            b["out"].copy_(self._synth(epoch, f[0], f[1], i[0], i[1], f[2],
+                                       f[3], f[4]))
+        self._graphs.run(("sky", n_ep), body)
+        return b["out"]
 
     def _synth(self, epoch: int, ph0, dph, i0, s0, flip_s, bit_a,
                bit_b) -> torch.Tensor:
@@ -416,12 +477,18 @@ class GpsScene:
         def i64(a):
             return torch.as_tensor(np.asarray(a, np.int64),
                                    device=self._dev)
-        out = self._synth(epoch, f32(ph0), f32(dph), i64(i0), i64(s0),
-                          f32(flip_s), f32(bit_a), f32(bit_b))
+        if self._graphs is None:
+            out = self._synth(epoch, f32(ph0), f32(dph), i64(i0), i64(s0),
+                              f32(flip_s), f32(bit_a), f32(bit_b))
+        else:
+            out = self._synth_compiled(epoch, [ph0, dph, flip_s, bit_a,
+                                               bit_b], [i0, s0])
         self.ticks += n
         # returned as a DEVICE tensor: the tracking kernel consumes it
         # in place, so the IF stream never crosses the host link; the
-        # search path fetches a capture only when a search is due
+        # search path fetches a capture only when a search is due.  The
+        # compiled sky's is its output buffer: the next chunk overwrites
+        # it
         return out
 
     def next_block(self, n: int) -> np.ndarray:

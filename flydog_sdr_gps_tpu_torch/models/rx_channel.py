@@ -28,14 +28,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
-import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _graphs
 from ..numerology import ADC_CLOCK_NOM, AUDIO_BLOCK, SND_RATE_12K
 from ..ops import agc as agc_ops
 from ..ops import channelizer as chz
@@ -433,26 +431,7 @@ def gates(tuning: RxTuning) -> tuple[bool, bool, bool, bool]:
     return tuple(getattr(tuning, f) for f in GATE_FIELDS)
 
 
-def copy_into(dst, src) -> None:
-    """Copy each tensor of ``src`` into the same field of ``dst`` (a
-    tensor or nested dataclasses of tensors; fields that are not tensors
-    are left alone).  Shapes and dtypes must agree; a field whose
-    tensor already is ``dst``'s is skipped."""
-    if isinstance(dst, torch.Tensor):
-        if src is dst:
-            return
-        if not isinstance(src, torch.Tensor) or src.shape != dst.shape \
-                or src.dtype != dst.dtype:
-            raise ValueError(
-                f"cannot copy {getattr(src, 'dtype', type(src))} "
-                f"{tuple(getattr(src, 'shape', ()))} into a {dst.dtype} "
-                f"{tuple(dst.shape)} buffer")
-        dst.copy_(src)
-        return
-    for f in dataclasses.fields(dst):
-        d = getattr(dst, f.name)
-        if isinstance(d, torch.Tensor) or dataclasses.is_dataclass(d):
-            copy_into(d, getattr(src, f.name))
+copy_into = _graphs.copy_into
 
 
 def empty_taps(params: RxParams, device: torch.device | str) -> RxTaps:
@@ -466,29 +445,6 @@ def empty_taps(params: RxParams, device: torch.device | str) -> RxTaps:
                   iq_pre_fir=torch.zeros((b, c), **c64),
                   iq_post_agc=torch.zeros((b, c), **c64),
                   smeter_dbm=torch.zeros(c, **f32))
-
-
-class _Graph:
-    """One captured program: its CUDA graph, the launches each wrapper
-    made during the capture (credited at every replay, so a replayed
-    block counts as an eager one does) and the capture's wall ms."""
-
-    def __init__(self, graph, launches: dict, capture_ms: float):
-        self.graph = graph
-        self.launches = launches
-        self.capture_ms = capture_ms
-
-    def replay(self) -> None:
-        self.graph.replay()
-        _build.credit(self.launches)
-
-
-def _warm_blas(device: torch.device) -> None:
-    """One tiny float32 matmul on this thread's current stream: it makes
-    the thread's cuBLAS handle and that stream's workspace, which must
-    not be made inside a capture."""
-    a = torch.zeros((8, 8), dtype=torch.float32, device=device)
-    torch.matmul(a, a)
 
 
 class CompiledRxBlock:
@@ -505,16 +461,14 @@ class CompiledRxBlock:
     On a card each program is captured in a CUDA graph under each gate
     tuple (:func:`gates`; they choose Python branches where the
     reference has ``lax.cond``, so a graph is kept per tuple as
-    ``jax.jit`` keeps a program per static argument).  The first run of
-    a key runs eagerly on the live buffers (it is that block, and the
-    warm-up that makes cuBLAS handles and cuFFT plans, which must exist
-    before a capture), then the key is captured; later runs replay it.
+    ``jax.jit`` keeps a program per static argument), through
+    :class:`.._graphs.GraphSet`: a key's first run is eager (that block,
+    and the warm-up), then it is captured and later runs replay it;
     :meth:`prepare` captures a key ahead of time without touching the
-    live buffers.  All graphs of one step share one memory pool, and the
-    buffers lie outside it, so no graph's temporaries land on what
-    another graph reads.  A capture or replay that fails raises; nothing
-    runs eagerly in its place.  On the CPU a program runs its body: the
-    same static-buffer step, with nothing captured.
+    live buffers; a failed capture raises; on the CPU a program runs its
+    body, the same static-buffer step.  The buffers lie outside the
+    graphs' pool, so no graph's temporaries land on what another graph
+    reads.
 
     Every block writes the same buffers: a block's taps (and a serving
     program's result) are overwritten by the next block, so whatever
@@ -529,16 +483,19 @@ class CompiledRxBlock:
         self.x = torch.zeros(params.ddc.adc_block, dtype=torch.float32,
                              device=self.device)
         self.taps = empty_taps(params, self.device)
-        self.graphs: dict[tuple, _Graph] = {}
-        # launches of the warm-ups :meth:`prepare` ran on scratch buffers
-        # (real launches, counted as such; {wrapper: n})
-        self.warmup_launches: dict = {}
-        self._warm: set[tuple] = set()      # gate tuples run eagerly here
-        self._failed: dict[tuple, str] = {}  # keys whose capture failed
-        self._lock = threading.Lock()       # one capture at a time
-        if self.device.type == "cuda":
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(self.device)
+        # the graphs of the step's programs, keyed program + gates
+        self._graphs = _graphs.GraphSet(self.device)
+
+    @property
+    def graphs(self) -> dict:
+        """The captured programs ({key: ``_graphs.Graph``})."""
+        return self._graphs.graphs
+
+    @property
+    def warmup_launches(self) -> dict:
+        """Launches of the warm-ups :meth:`prepare` ran on scratch
+        buffers (real launches, counted as such; {wrapper: n})."""
+        return self._graphs.warmup_launches
 
     # -- the block step --------------------------------------------------
     def body(self, state: RxState, tuning: RxTuning, x: torch.Tensor,
@@ -569,23 +526,8 @@ class CompiledRxBlock:
         ``fn(tuning)`` is its body over the live buffers (``tuning`` is
         the tuning buffers with this run's gates)."""
         tuning = self.tuning
-        if self.device.type != "cuda":
-            fn(tuning)
-            return
-        key = program + gates(tuning)
-        graph = self.graphs.get(key)
-        if graph is None:
-            if key in self._failed:         # no eager block in its place
-                raise RuntimeError(f"the capture of {key} failed: "
-                                   f"{self._failed[key]}")
-            with self._lock:
-                graph = self.graphs.get(key)
-                if graph is None:
-                    fn(tuning)              # this block, and the warm-up
-                    self._warm.add(gates(tuning))
-                    self._capture(key, lambda: fn(tuning))
-                    return
-        graph.replay()
+        self._graphs.run(program + gates(tuning), lambda: fn(tuning),
+                         warm_key=gates(tuning))
 
     def prepare(self, program: tuple, fn: Callable[[RxTuning], object],
                 warm: Callable[[RxTuning], object]) -> None:
@@ -593,62 +535,13 @@ class CompiledRxBlock:
         loop (from any thread, beside replays on another).  ``fn`` is as
         for :meth:`run`; ``warm(tuning)`` runs the same program eagerly
         on scratch buffers, and runs only when these gates have not yet
-        run here: the live buffers are never touched.
-
-        While it captures, no other thread may synchronize the whole
-        device (``torch.cuda.synchronize()``, ``empty_cache()``): CUDA
-        refuses a wait on a capturing stream, and the capture fails.
-        Wait on a stream or an event instead, as the engine and the
-        server do."""
-        if self.device.type != "cuda":
-            return
+        run here: the live buffers are never touched.  While it
+        captures, no other thread may synchronize the whole device (see
+        :meth:`.._graphs.GraphSet.prepare`): the engine and the server
+        wait on streams and events."""
         tuning = self.tuning
-        key = program + gates(tuning)
-        with self._lock:
-            if key in self.graphs:
-                return
-            if key in self._failed:
-                raise RuntimeError(f"the capture of {key} failed: "
-                                   f"{self._failed[key]}")
-            if gates(tuning) not in self._warm:
-                with torch.cuda.stream(self._stream), \
-                        _build.recording() as launches:
-                    warm(tuning)
-                _build.credit(launches)
-                for wrapper, n in launches.items():
-                    self.warmup_launches[wrapper] = \
-                        self.warmup_launches.get(wrapper, 0) + n
-                self._stream.synchronize()
-                self._warm.add(gates(tuning))
-            self._capture(key, lambda: fn(tuning))
-
-    def _capture(self, key: tuple, fn: Callable[[], object]) -> None:
-        """Record ``fn`` in a CUDA graph on the step's own stream, in this
-        thread's capture mode only (other threads go on launching), into
-        the step's memory pool."""
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.device(self.device), \
-                torch.cuda.stream(self._stream):
-            _warm_blas(self.device)
-            with _build.recording() as launches:
-                graph.capture_begin(pool=self._pool,
-                                    capture_error_mode="thread_local")
-                recorded = False
-                try:
-                    fn()
-                    recorded = True
-                    graph.capture_end()
-                except BaseException as e:
-                    self._failed[key] = repr(e)
-                    if not recorded:        # end the broken capture
-                        try:
-                            graph.capture_end()
-                        except Exception:   # noqa: BLE001 — the first
-                            pass            # error is the one to raise
-                    raise
-        self.graphs[key] = _Graph(graph, dict(launches),
-                                  (time.perf_counter() - t0) * 1e3)
+        self._graphs.prepare(program + gates(tuning), lambda: fn(tuning),
+                             lambda: warm(tuning), warm_key=gates(tuning))
 
 
 def jit_rx_block(params: RxParams, device: torch.device | str = "cuda"

@@ -317,17 +317,22 @@ def _pixel_segments(fft_size: int, out_px: int, frac: float
 def _frame_constants(fft_size: int, out_px: int, frac: float,
                      window_kind: str, device: str):
     """Device constants of :func:`wf_frame`: the normalised window, the
-    bin -> pixel segment ids, the bins a pixel averages over, and the
-    'drop' and 'last' gather indices."""
+    bin -> pixel segment ids, the bins a pixel averages over (a row of
+    bin indices a pixel, padded with ``fft_size``, the index of a zero),
+    their counts, and the 'drop' and 'last' gather indices."""
     w = windows.window(window_kind, fft_size)
     wn = torch.as_tensor(w, device=device) / float(np.sum(w, dtype=np.float64))
     seg, drop_idx, last_idx = _pixel_segments(fft_size, out_px, frac)
     count = np.bincount(seg, minlength=out_px + 1).astype(np.float32)
+    members = np.full((out_px, max(int(count[:out_px].max()), 1)), fft_size)
+    for p in range(out_px):
+        bins = np.flatnonzero(seg == p)
+        members[p, :len(bins)] = bins
 
     def dev(a):
         return torch.as_tensor(a.astype(np.int64), device=device)
-    return (wn, dev(seg), torch.as_tensor(count, device=device),
-            dev(drop_idx), dev(last_idx))
+    return (wn, dev(seg), torch.as_tensor(count[:out_px], device=device),
+            dev(members), dev(drop_idx), dev(last_idx))
 
 
 def wf_frame(params: WfParams, state: WfState,
@@ -344,16 +349,17 @@ def wf_frame(params: WfParams, state: WfState,
     if mode not in WF_MODES:
         raise ValueError(f"unknown wf mode {mode!r}")
     frac = params.span / (params.adc_clock / params.total_decim)
-    wn, seg, count, drop_idx, last_idx = _frame_constants(
+    wn, seg, count, members, drop_idx, last_idx = _frame_constants(
         params.fft_size, params.out_px, float(frac), window_kind,
         str(state.ring.device))
     spec = torch.fft.fftshift(torch.fft.fft(state.ring * wn))
     power = spec.real * spec.real + spec.imag * spec.imag
     npx = params.out_px
     if mode == "cma":
-        s = torch.zeros(npx + 1, dtype=torch.float32, device=power.device)
-        s.index_add_(0, seg, power)
-        px = (s / torch.clamp(count, min=1.0))[:npx]
+        # each pixel's bins summed in a fixed order (an index_add_ sums
+        # by atomics on a card: a row would differ from run to run)
+        padded = torch.cat([power, power.new_zeros(1)])
+        px = padded[members].sum(1) / torch.clamp(count, min=1.0)
     elif mode in ("max", "min"):
         start = float("-inf") if mode == "max" else float("inf")
         s = torch.full((npx + 1,), start, dtype=torch.float32,

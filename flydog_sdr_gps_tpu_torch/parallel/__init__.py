@@ -16,10 +16,11 @@ with its halo exchange (:mod:`.sharded_rx`) and the multi-process glue
 """
 
 from .mesh import Mesh, make_mesh, mesh_shape
-from .sharded_rx import (ShardedRxState, ShardedRxTuning, gather_rx_state,
-                         gather_taps, make_sharded_rx_step, shard_rx_state,
-                         shard_rx_tuning)
+from .sharded_rx import (ShardedProgram, ShardedRxState, ShardedRxTuning,
+                         gather_rx_state, gather_taps, make_sharded_rx_step,
+                         shard_rx_state, shard_rx_tuning)
 
-__all__ = ["Mesh", "ShardedRxState", "ShardedRxTuning", "gather_rx_state",
+__all__ = ["Mesh", "ShardedProgram", "ShardedRxState", "ShardedRxTuning",
+           "gather_rx_state",
            "gather_taps", "make_mesh", "make_sharded_rx_step", "mesh_shape",
            "shard_rx_state", "shard_rx_tuning"]

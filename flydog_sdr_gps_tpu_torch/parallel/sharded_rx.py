@@ -44,10 +44,10 @@ import dataclasses
 
 import torch
 
+from .. import _graphs
 from ..models import rx_channel as rx
 from ..ops import channelizer as chz
 from ..ops import nco
-from .distributed import host_shard_block
 from .mesh import Mesh, mesh_shape
 
 # the tuning fields of the DDC: columns of channel shard k, the same on
@@ -277,19 +277,10 @@ def _all_gather_taps(taps, mesh: Mesh):
 # the step
 # ---------------------------------------------------------------------------
 
-def make_sharded_rx_step(params: rx.RxParams, mesh: Mesh):
-    """Build the multi-device receiver step.
-
-    Returns ``step(state, tuning, x) -> (new_state, taps)``: ``state`` a
-    :class:`ShardedRxState`, ``tuning`` a :class:`ShardedRxTuning`, ``x``
-    this process's part of the ADC block (a tensor or numpy array; the
-    whole (adc_block,) block in one process) or what
-    :func:`host_shard_block` made of it.  ``taps[t][k]`` are the
-    ``RxTaps`` of channel group k*T + t on device (t, k)
-    (:func:`gather_taps` joins them).
-    """
+def _check(params: rx.RxParams, mesh: Mesh) -> None:
+    """The reference's requirements of a mesh step, with its messages."""
     plan = params.ddc
-    t_sz, k_sz, c_chan, c_local = _sizes(mesh, params.num_channels)
+    t_sz = _sizes(mesh, params.num_channels)[0]
     if params.audio_block % t_sz:
         raise ValueError("audio_block must divide by time shards")
     k1_local = plan.k1 // t_sz
@@ -297,31 +288,207 @@ def make_sharded_rx_step(params: rx.RxParams, mesh: Mesh):
         raise ValueError(
             f"time shard too small: k1_local={k1_local} < tail2="
             f"{plan.tail2}; raise audio_block or lower time shards")
-    rows = mesh.local_rows
-    first, last = rows[0], rows[-1]
-    multi = mesh.num_processes > 1
-    cdev = _comm_device(mesh)
-    owner = mesh.row_process
 
-    def left_of(t, k, own, edge, tail):
-        """The ``tail`` samples before shard t's first: the carry at
-        t=0, shard t-1's last ones (a copy from its device, or what
-        another process sent)."""
-        dev = mesh.device(t, k)
-        if t == 0:
-            return own.to(dev)
-        if mesh.is_local(t - 1):
-            return edge(t - 1)[-tail:].to(dev)
-        return edge(None).to(dev)
+
+def _clone(obj):
+    """A copy of nested lists and dataclasses with every tensor cloned
+    (host fields, such as a tuning's gates, kept)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, list):
+        return [_clone(x) for x in obj]
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _clone(getattr(obj, f.name))
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), (torch.Tensor, list))
+            or dataclasses.is_dataclass(getattr(obj, f.name))})
+    return obj
+
+
+def make_sharded_rx_step(params: rx.RxParams, mesh: Mesh):
+    """Build the multi-device receiver step.
+
+    Returns ``step(state, tuning, x) -> (new_state, taps)``: ``state`` a
+    :class:`ShardedRxState`, ``tuning`` a :class:`ShardedRxTuning`, ``x``
+    this process's part of the ADC block (a tensor or numpy array; the
+    whole (adc_block,) block in one process) or what
+    :func:`.distributed.host_shard_block` made of it.  ``taps[t][k]``
+    are the ``RxTaps`` of channel group k*T + t on device (t, k)
+    (:func:`gather_taps` joins them).
+
+    The step is :class:`ShardedProgram`'s body run with nothing
+    captured, over buffers of its own: ``state`` and ``tuning`` are
+    copied in, and the new state and the taps are returned as copies.
+    """
+    _check(params, mesh)
+    prog = None
 
     def step(state: ShardedRxState, tuning: ShardedRxTuning, x):
-        xs = x if isinstance(x, list) else host_shard_block(mesh, x)
-        local = [(t, k) for t in rows for k in range(k_sz)]
+        nonlocal prog
+        if prog is None:
+            prog = ShardedProgram(params, mesh, _clone(state),
+                                  _clone(tuning), use_graphs=False)
+        else:
+            prog.load_state(state)
+            prog.load_tuning(tuning)
+        if isinstance(x, list):         # host_shard_block's placement
+            x = torch.cat([x[t][0].to(prog.cdev) for t in mesh.local_rows])
+        taps = prog(torch.as_tensor(x))
+        return _clone(prog.state), _clone(taps)
 
-        # ---- stage 1 and its halo: shard t-1's last tail1 samples ----
+    return step
+
+
+# ---------------------------------------------------------------------------
+# the compiled step
+# ---------------------------------------------------------------------------
+
+class ShardedProgram:
+    """The mesh step over buffers this program owns (the reference's
+    ``jax.jit`` of its ``shard_map``).
+
+    Each device's compute between two exchanges is a program, keyed by
+    that shard's gates: stage 1 (``("s1", t, k)``), stage 2 after the
+    stage-1 halo (``("s2", t, k)``), the back half after the re-shard
+    (``("back", t, k) + gates``).  The exchanges (the halos, the
+    re-shard, the carries: copies between devices, ``batch_isend_irecv``
+    and ``all_gather`` between processes) run between them, outside any
+    graph, so one code path serves one process and several.  When one
+    process drives a mesh of one device (the (2, 2) mesh of one card),
+    the whole step, segments and exchanges, is one program (``whole``),
+    keyed by every shard's gates.  On a card each program is a CUDA graph
+    (:mod:`.._graphs`) unless ``use_graphs`` is False; on the CPU, or
+    then, the same bodies run with nothing captured.
+
+    ``state`` and ``tuning`` are the buffers (:meth:`load_state` and
+    :meth:`load_tuning` copy into them).  :meth:`__call__` returns the
+    per-device taps buffers, which the next block overwrites.
+    """
+
+    def __init__(self, params: rx.RxParams, mesh: Mesh,
+                 state: ShardedRxState, tuning: ShardedRxTuning,
+                 use_graphs: bool = True):
+        _check(params, mesh)
+        plan = params.ddc
+        t_sz, k_sz, c_chan, c_local = _sizes(mesh, params.num_channels)
+        self.params, self.mesh = params, mesh
+        self.state, self.tuning = state, tuning
+        self.rows = mesh.local_rows
+        self.local = [(t, k) for t in self.rows for k in range(k_sz)]
+        self.cdev = _comm_device(mesh)
+        devs = list(dict.fromkeys(mesh.device(t, k) for t, k in self.local))
+        self.whole = mesh.num_processes == 1 and len(devs) == 1
+        self._graphs = {d: _graphs.GraphSet(d, enabled=use_graphs)
+                        for d in devs}
+        self.k1_local = plan.k1 // t_sz
+        n2 = params.audio_block // t_sz
+        nl = plan.adc_block // t_sz
+
+        def grid(fn):
+            g = [[None] * k_sz for _ in range(t_sz)]
+            for t, k in self.local:
+                g[t][k] = fn(t, k, mesh.device(t, k))
+            return g
+        f32, i64, c64 = torch.float32, torch.int64, torch.complex64
+        # the process's part of the block; rows on the comm device read
+        # views of it, other devices a copy of their row
+        self.x = torch.zeros(nl * len(self.rows), dtype=f32, device=self.cdev)
+        placed: dict = {}
+
+        def x_row(t, k, dev):
+            i = self.rows.index(t)
+            if dev == self.cdev:
+                return self.x[i * nl:(i + 1) * nl]
+            if (t, dev) not in placed:
+                placed[t, dev] = torch.zeros(nl, dtype=f32, device=dev)
+            return placed[t, dev]
+        self.xs = grid(x_row)
+        # (row copy, its slice of x): the rows the first exchange copies
+        self._x_copies = [(buf, self.x[self.rows.index(t) * nl:
+                                       (self.rows.index(t) + 1) * nl])
+                          for (t, _dev), buf in placed.items()]
+        self.x_left = grid(lambda t, k, d: torch.zeros(plan.tail1, dtype=f32,
+                                                       device=d))
+        self.phi = grid(lambda t, k, d: torch.zeros(c_chan, dtype=i64,
+                                                    device=d))
+        self.y1 = grid(lambda t, k, d: torch.zeros(
+            (self.k1_local, c_chan), dtype=c64, device=d))
+        self.y_left = grid(lambda t, k, d: torch.zeros(
+            (plan.tail2, c_chan), dtype=c64, device=d))
+        self.iq_local = grid(lambda t, k, d: torch.zeros(
+            (n2, c_chan), dtype=c64, device=d))
+        self.iq_back = grid(lambda t, k, d: torch.zeros(
+            (params.audio_block, c_local), dtype=c64, device=d))
+
+        def taps(t, k, d):
+            def z(dtype):
+                return torch.zeros((params.audio_block, c_local),
+                                   dtype=dtype, device=d)
+            return rx.RxTaps(audio=z(f32), audio2=z(f32), iq_pre_fir=z(c64),
+                             iq_post_agc=z(c64),
+                             smeter_dbm=torch.zeros(c_local, dtype=f32,
+                                                    device=d))
+        self.taps = grid(taps)
+
+    def load_state(self, value: ShardedRxState) -> None:
+        """Copy a sharded state into the state buffers."""
+        for mine, new in zip(self.state.ddc, value.ddc):
+            _graphs.copy_into(mine, new)
+        for row_b, row_v in zip(self.state.back, value.back):
+            for mine, new in zip(row_b, row_v):
+                if mine is not None:
+                    _graphs.copy_into(mine, new)
+
+    def load_tuning(self, value: ShardedRxTuning) -> None:
+        """Copy a sharded tuning into the shard buffers, and take each
+        shard's host gates."""
+        bufs = self.tuning.shards
+        for t, row in enumerate(value.shards):
+            for k, new in enumerate(row):
+                if new is not None:
+                    _graphs.copy_into(bufs[t][k], new)
+                    bufs[t][k] = dataclasses.replace(
+                        bufs[t][k], **{f: getattr(new, f)
+                                       for f in rx.GATE_FIELDS})
+
+    def __call__(self, x: torch.Tensor):
+        """One block: ``x`` (this process's part of the ADC block) copied
+        into the input buffer, then the step; returns ``taps[t][k]``."""
+        self.x.copy_(x)
+        if self.whole:
+            key = ("mesh",) + tuple(rx.gates(self.tuning.shards[t][k])
+                                    for t, k in self.local)
+            self._graphs[self.cdev].run(key, self._body)
+        else:
+            self._body()
+        return self.taps
+
+    def _segment(self, key: tuple, dev: torch.device, fn) -> None:
+        """One device's compute between two exchanges: a program of its
+        own (or, in a whole-step program, just its body)."""
+        with _on(dev):
+            if self.whole:
+                fn()
+            else:
+                self._graphs[dev].run(key, fn)
+
+    def _body(self) -> None:
+        params, mesh, plan = self.params, self.mesh, self.params.ddc
+        t_sz, k_sz = mesh_shape(mesh)
+        rows, local, cdev = self.rows, self.local, self.cdev
+        first, last = rows[0], rows[-1]
+        owner, multi = mesh.row_process, mesh.num_processes > 1
+        state, tuning = self.state, self.tuning
+        c_local = params.num_channels // (t_sz * k_sz)
+        n2 = params.audio_block // t_sz
+
+        # ---- exchange: the block's rows, stage 1's halo, the phases ----
+        for buf, part in self._x_copies:
+            buf.copy_(part)
         ops, x_edge = [], None
         if last + 1 < t_sz:
-            ops.append((True, xs[last][0][-plan.tail1:].to(cdev)
+            ops.append((True, self.xs[last][0][-plan.tail1:].to(cdev)
                         .contiguous(), owner[last + 1]))
         if first > 0:
             x_edge = torch.empty(plan.tail1, dtype=torch.float32,
@@ -329,93 +496,112 @@ def make_sharded_rx_step(params: rx.RxParams, mesh: Mesh):
             ops.append((False, x_edge, owner[first - 1]))
         if multi:
             _p2p(ops)
-        y1 = {}
         for t, k in local:
-            dev, tun = mesh.device(t, k), tuning.shards[t][k]
-            with _on(dev):
-                left = left_of(t, k, state.ddc[k].x_tail,
-                               lambda s: x_edge if s is None else xs[s][k],
-                               plan.tail1)
-                x_ext = torch.cat([left, xs[t][k]])
-                phi = nco.advance(state.ddc[k].phi1.to(dev), tun.dphi1,
-                                  t * k1_local)
-                y1[t, k] = chz.stage1_apply(plan, x_ext, tun.bank, phi,
-                                            tun.dphi1)   # (k1/T, C/K)
+            if t == 0:
+                left = state.ddc[k].x_tail
+            elif mesh.is_local(t - 1):
+                left = self.xs[t - 1][k][-plan.tail1:]
+            else:
+                left = x_edge
+            self.x_left[t][k].copy_(left)
+            self.phi[t][k].copy_(state.ddc[k].phi1)
 
-        # ---- stage 2 and its halo: (t-1, k)'s last tail2 outputs ----
+        # ---- stage 1 ----
+        for t, k in local:
+            def s1(t=t, k=k):
+                tun = tuning.shards[t][k]
+                x_ext = torch.cat([self.x_left[t][k], self.xs[t][k]])
+                phi = nco.advance(self.phi[t][k], tun.dphi1,
+                                  t * self.k1_local)
+                self.y1[t][k].copy_(chz.stage1_apply(plan, x_ext, tun.bank,
+                                                     phi, tun.dphi1))
+            self._segment(("s1", t, k), mesh.device(t, k), s1)
+
+        # ---- exchange: stage 2's halo ----
         ops, y_edge = [], {}
         for k in range(k_sz):
             if last + 1 < t_sz:
-                ops.append((True, y1[last, k][-plan.tail2:].to(cdev)
+                ops.append((True, self.y1[last][k][-plan.tail2:].to(cdev)
                             .contiguous(), owner[last + 1]))
             if first > 0:
-                y_edge[k] = torch.empty((plan.tail2, c_chan),
-                                        dtype=torch.complex64, device=cdev)
+                y_edge[k] = torch.empty((plan.tail2, self.y1[first][k]
+                                         .shape[1]), dtype=torch.complex64,
+                                        device=cdev)
                 ops.append((False, y_edge[k], owner[first - 1]))
         if multi:
             _p2p(ops)
-        y_ext, iq_local = {}, {}
         for t, k in local:
-            with _on(mesh.device(t, k)):
-                left = left_of(t, k, state.ddc[k].y_tail,
-                               lambda s: y_edge[k] if s is None
-                               else y_ext[s, k], plan.tail2)
-                y_ext[t, k] = torch.cat([left, y1.pop((t, k))])
-                iq_local[t, k] = chz.stage2_apply(plan, y_ext[t, k])
+            if t == 0:
+                left = state.ddc[k].y_tail
+            elif mesh.is_local(t - 1):
+                left = self.y1[t - 1][k][-plan.tail2:]
+            else:
+                left = y_edge[k]
+            self.y_left[t][k].copy_(left)
 
-        # ---- re-shard: all of time, this device's channel group ----
+        # ---- stage 2 ----
+        for t, k in local:
+            def s2(t=t, k=k):
+                y_ext = torch.cat([self.y_left[t][k], self.y1[t][k]])
+                self.iq_local[t][k].copy_(chz.stage2_apply(plan, y_ext))
+            self._segment(("s2", t, k), mesh.device(t, k), s2)
+
+        # ---- exchange: the re-shard (all of time, this group) ----
         if multi:
             whole = {k: _all_gather_rows(torch.stack(
-                [iq_local[t, k].to(cdev) for t in rows]), mesh)
+                [self.iq_local[t][k].to(cdev) for t in rows]), mesh)
                 for k in range(k_sz)}
-            by_row = lambda s, k: whole[k][s]
-        else:
-            by_row = lambda s, k: iq_local[s, k]
-        back = [[None] * k_sz for _ in range(t_sz)]
-        taps = [[None] * k_sz for _ in range(t_sz)]
-        for t, k in local:
-            dev = mesh.device(t, k)
-            cols = slice(t * c_local, (t + 1) * c_local)
-            iq = torch.cat([by_row(s, k)[:, cols].to(dev)
-                            for s in range(t_sz)])
-            # ---- audio-rate back half on the group ----
-            with _on(dev):
-                back[t][k], taps[t][k] = rx.audio_back_half(
-                    params, state.back[t][k], tuning.shards[t][k], iq)
 
-        # ---- DDC carries from the last time shard ----
-        ddc = []
+            def by_row(s, k):
+                return whole[k][s]
+        else:
+            def by_row(s, k):
+                return self.iq_local[s][k]
+        for t, k in local:
+            cols = slice(t * c_local, (t + 1) * c_local)
+            for s in range(t_sz):
+                self.iq_back[t][k][s * n2:(s + 1) * n2].copy_(
+                    by_row(s, k)[:, cols])
+
+        # ---- the back half on each group ----
+        for t, k in local:
+            def back(t=t, k=k):
+                new, taps = rx.audio_back_half(
+                    params, state.back[t][k], tuning.shards[t][k],
+                    self.iq_back[t][k])
+                _graphs.copy_into(state.back[t][k], new)
+                _graphs.copy_into(self.taps[t][k], taps)
+            self._segment(("back", t, k) + rx.gates(tuning.shards[t][k]),
+                          mesh.device(t, k), back)
+
+        # ---- exchange: the DDC carries from the last time shard ----
         if t_sz - 1 in rows and 0 in rows:
-            x_tails = [xs[t_sz - 1][k][-plan.tail1:] for k in range(k_sz)]
-            y_tails = [y_ext[t_sz - 1, k][-plan.tail2:]
+            x_tails = [self.xs[t_sz - 1][k][-plan.tail1:]
+                       for k in range(k_sz)]
+            y_tails = [self.y1[t_sz - 1][k][-plan.tail2:]
                        for k in range(k_sz)]
         else:
             ops, x_tails, y_tails = [], [None] * k_sz, [None] * k_sz
             if t_sz - 1 in rows:
-                ops.append((True, xs[t_sz - 1][0][-plan.tail1:].to(cdev)
+                ops.append((True, self.xs[t_sz - 1][0][-plan.tail1:].to(cdev)
                             .contiguous(), owner[0]))
-                ops += [(True, y_ext[t_sz - 1, k][-plan.tail2:].to(cdev)
+                ops += [(True, self.y1[t_sz - 1][k][-plan.tail2:].to(cdev)
                          .contiguous(), owner[0]) for k in range(k_sz)]
             if 0 in rows:
                 xt = torch.empty(plan.tail1, dtype=torch.float32,
                                  device=cdev)
                 x_tails = [xt] * k_sz
-                y_tails = [torch.empty((plan.tail2, c_chan),
-                                       dtype=torch.complex64, device=cdev)
-                           for _ in range(k_sz)]
+                y_tails = [torch.empty_like(state.ddc[k].y_tail, device=cdev)
+                           for k in range(k_sz)]
                 ops.append((False, xt, owner[t_sz - 1]))
                 ops += [(False, y, owner[t_sz - 1]) for y in y_tails]
             _p2p(ops)
         for k in range(k_sz):
-            old = state.ddc[k]
-            dev = old.phi1.device
-            dphi = tuning.shards[first][k].dphi1.to(dev)
-            ddc.append(chz.DDCState(
-                x_tail=(old.x_tail if x_tails[k] is None
-                        else x_tails[k].to(dev, copy=True)),
-                y_tail=(old.y_tail if y_tails[k] is None
-                        else y_tails[k].to(dev, copy=True)),
-                phi1=nco.advance(old.phi1, dphi, plan.k1)))
-        return ShardedRxState(ddc=ddc, back=back), taps
-
-    return step
+            carry = state.ddc[k]
+            with _on(carry.phi1.device):
+                if x_tails[k] is not None:
+                    carry.x_tail.copy_(x_tails[k])
+                    carry.y_tail.copy_(y_tails[k])
+                carry.phi1.copy_(nco.advance(
+                    carry.phi1, tuning.shards[first][k].dphi1.to(
+                        carry.phi1.device), plan.k1))

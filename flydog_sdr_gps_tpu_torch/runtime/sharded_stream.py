@@ -1,7 +1,7 @@
 """The multi-device engine: :class:`StreamEngine` over a device mesh.
 
 Port of :mod:`flydog_sdr_gps_tpu.runtime.sharded_stream`.  The step is
-:func:`..parallel.make_sharded_rx_step`: the 125 Msps front half split
+:class:`..parallel.ShardedProgram`: the 125 Msps front half split
 in time with halo exchange of the filter tails, the audio-rate back half
 re-sharded over every device.  It is a drop-in ``StreamEngine``: the
 server's block loop, the control plane ("SET" -> :meth:`set_channel`),
@@ -31,7 +31,7 @@ import torch
 from .. import parallel
 from ..models import rx_channel as rx
 from ..parallel import distributed
-from .stream import StreamEngine
+from .stream import StreamEngine, _ready_event
 
 
 class ShardedStreamEngine(StreamEngine):
@@ -42,28 +42,60 @@ class ShardedStreamEngine(StreamEngine):
     run_block_gather = None
 
     def __init__(self, params: rx.RxParams, source, mesh=None,
-                 time: int | None = None, chan: int | None = None):
+                 time: int | None = None, chan: int | None = None,
+                 use_graphs: bool | None = None):
+        """``use_graphs``: capture the mesh step's programs
+        (:class:`..parallel.ShardedProgram`) as CUDA graphs, by default
+        on cards; ``False``, and the CPU, run the same bodies with
+        nothing captured."""
         if mesh is None:
             mesh = distributed.make_global_mesh(time=time, chan=chan)
         self.mesh = mesh
-        # the eager step, as the reference's passes use_jit=False: the
-        # mesh step has no compiled program yet
-        super().__init__(params, source,
-                         device=mesh.device(mesh.local_rows[0], 0),
-                         use_graphs=False)
-        self._step = parallel.make_sharded_rx_step(params, mesh)
-        self.state = parallel.shard_rx_state(self.state, mesh, params)
+        dev = mesh.device(mesh.local_rows[0], 0)
+        if use_graphs is None:
+            use_graphs = dev.type == "cuda"
+        self._program = parallel.ShardedProgram(
+            params, mesh,
+            parallel.shard_rx_state(rx.init_state(params, dev), mesh, params),
+            parallel.shard_rx_tuning(rx.default_tuning(params, dev), mesh),
+            use_graphs=use_graphs)
+        # the single-device step is never built: the mesh step replaces
+        # it; the base's state and tuning assignments copy into the
+        # program's buffers
+        super().__init__(params, source, device=dev, use_graphs=False)
 
-    # -- control plane ---------------------------------------------------
+    @property
+    def program(self) -> "parallel.ShardedProgram":
+        """The mesh step (its graphs and buffers)."""
+        return self._program
+
+    # -- the state and tuning: the program's own buffers ------------------
+    @property
+    def state(self) -> "parallel.ShardedRxState":
+        """The streaming state split over the mesh; assigning (a whole
+        ``RxState`` is sharded first) copies into the buffers."""
+        return self._program.state
+
+    @state.setter
+    def state(self, value) -> None:
+        if isinstance(value, rx.RxState):
+            value = parallel.shard_rx_state(value, self.mesh, self.params)
+        self._program.load_state(value)
+
     @property
     def tuning(self) -> rx.RxTuning:
-        """The whole tuning; setting it re-shards it over the mesh."""
+        """The whole tuning; setting it re-shards it over the mesh, into
+        the program's shard buffers, with each shard's gates."""
         return self._tuning
 
     @tuning.setter
     def tuning(self, value: rx.RxTuning) -> None:
         self._tuning = value
-        self.sharded_tuning = parallel.shard_rx_tuning(value, self.mesh)
+        self._program.load_tuning(parallel.shard_rx_tuning(value, self.mesh))
+
+    @property
+    def sharded_tuning(self) -> "parallel.ShardedRxTuning":
+        return self._program.tuning
 
     # -- data plane ------------------------------------------------------
     def run_block(self) -> rx.RxTaps:
@@ -77,9 +109,8 @@ class ShardedStreamEngine(StreamEngine):
             x = torch.from_numpy(x)
         x = x.to(self.device)
         self._last_x = x            # raw block for waterfall taps
-        self.state, taps = self._step(
-            self.state, self.sharded_tuning,
-            distributed.host_shard_block(self.mesh, x))
+        self._x_ready = _ready_event(x)
+        taps = self._program(x)
         taps = parallel.gather_taps(taps, self.mesh, self.device)
         self.block_ticks = ticks
         self.seq += 1
@@ -90,33 +121,22 @@ class ShardedStreamEngine(StreamEngine):
             fn(self, taps)
         return taps
 
-    def reset_streaming_state(self) -> None:
-        self.state = parallel.shard_rx_state(
-            rx.init_state(self.params, self.device), self.mesh, self.params)
-        self.resets += 1
-
     # -- checkpoint / resume ----------------------------------------------
     def _whole_state(self) -> rx.RxState:
         return parallel.gather_rx_state(self.state, self.mesh, self.device)
 
-    def load_state(self, path: str) -> None:
-        super().load_state(path)
-        self.state = parallel.shard_rx_state(self.state, self.mesh,
-                                             self.params)
-
     def scaling_report(self, iters: int = 4) -> dict:
-        """Wall time a step on this mesh, on a zero block and a fresh
-        state chain (the live state is not touched)."""
-        x = distributed.host_shard_block(self.mesh, torch.zeros(
-            self.params.ddc.adc_block // self.mesh.num_processes,
-            dtype=torch.float32, device=self.device))
-        chain = {"state": parallel.shard_rx_state(
-            rx.init_state(self.params, self.device), self.mesh,
-            self.params)}
-
-        def step():
-            chain["state"], _ = self._step(chain["state"],
-                                           self.sharded_tuning, x)
-        rep = distributed.scaling_report(self.mesh, step, (), iters=iters)
+        """Wall time a step on this mesh, on a zero block and a program of
+        its own from a fresh state (the live state is not touched)."""
+        x = torch.zeros(self.params.ddc.adc_block // self.mesh.num_processes,
+                        dtype=torch.float32, device=self.device)
+        prog = parallel.ShardedProgram(
+            self.params, self.mesh, parallel.shard_rx_state(
+                rx.init_state(self.params, self.device), self.mesh,
+                self.params),
+            parallel.shard_rx_tuning(self.tuning, self.mesh),
+            use_graphs=False)
+        rep = distributed.scaling_report(self.mesh, lambda: prog(x), (),
+                                         iters=iters)
         rep["channels"] = self.params.num_channels
         return rep

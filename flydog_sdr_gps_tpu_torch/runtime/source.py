@@ -18,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from .. import _graphs
 from ..numerology import ADC_CLOCK_NOM, RX_DECIM_12K
 from ..ops import nco
 
@@ -232,10 +233,11 @@ class DeviceSceneSource:
     ``(freq_hz, amplitude, ("am", mod_freq_hz, depth))`` AM signals, or
     ``(freq_hz, amplitude, ("fsk", baud_audio_frac, tone_spacing_hz,
     symbols, cycle_syms))`` M-FSK transmissions.  Each carrier and
-    modulator is an exact 48-bit NCO: the host keeps its phase as a
-    Python int, and the device builds the block's phase words with int64
-    arithmetic, so the scene stays phase-continuous forever.  Noise
-    comes from a seeded ``torch.Generator`` on the device.
+    modulator is an exact 48-bit NCO: its phase is an int64 word on the
+    device, advanced by ``fcw * block mod 2**48`` each block, and the
+    block's phase words are int64 arithmetic, so the scene stays
+    phase-continuous forever.  Noise comes from a seeded
+    ``torch.Generator`` on the device.
 
     FSK semantics (for decoder soak scenes, e.g. WSPR; ``baud_audio_frac``
     = audio samples per symbol at the 12 kHz channel rate, 8192 for
@@ -244,12 +246,25 @@ class DeviceSceneSource:
     at ``freq_hz + (symbols[n] - (M-1)/2) * tone_spacing_hz``.  The
     symbol clock is exact integer ticks, and each symbol boundary lands
     at its exact sample, however many fall in one block (a 100 Bd
-    NAVTEX emitter has 17 in a 2048-sample block).
+    NAVTEX emitter has 17 in a 2048-sample block): the host writes each
+    emitter's stretches into a table of fixed capacity (``ceil(block /
+    symbol ticks) + 1`` rows, padded with starts at ``block``) through
+    one of two pinned buffers.
+
+    The block is one program over buffers the source owns (the reference
+    jits ``make``).  ``use_graphs`` (by default on a card, not on the
+    CPU): it is a CUDA graph, replayed on the caller's current stream,
+    with the noise generator registered with it, and ``next_block``
+    returns the output buffer ``out``, which the next block overwrites
+    (a consumer that keeps a block past the next one copies it); on the
+    CPU ``True`` runs the same body with nothing captured.  ``False``
+    runs the body and returns a copy of ``out``.
     """
 
     def __init__(self, tones=(), noise_rms: float = 0.0,
                  adc_clock: float = ADC_CLOCK_NOM, block: int = 512 * 10416,
-                 *, device: torch.device | str = "cuda", seed: int = 0):
+                 *, device: torch.device | str = "cuda", seed: int = 0,
+                 use_graphs: bool | None = None):
         self.adc_clock = adc_clock
         self.block = block
         self.ticks = 0
@@ -283,17 +298,99 @@ class DeviceSceneSource:
                 self._fcws.append(nco.freq_to_fcw(mf, adc_clock))
                 mod = (len(self._fcws) - 1, float(depth))
             self._tones.append((a, ci, mod))
-        self._phis = [0] * len(self._fcws)
         self._n = torch.arange(block, dtype=torch.int64, device=self.device)
+        if use_graphs is None:
+            use_graphs = self.device.type == "cuda"
+        self._alias = use_graphs
+        self._graphs = self._compile(use_graphs)
 
-    def _ramp(self, phi: int, fcw: int, n: torch.Tensor) -> torch.Tensor:
-        """Phase words ``phi + n*fcw`` mod 2**48 for sample offsets n."""
-        w = torch.tensor(fcw, dtype=torch.int64, device=self.device)
-        return (phi + nco.mul_mod48(n, w)) & nco.MASK48
+    # -- the block's program: buffers, segment tables --------------------
+    def _compile(self, use_graphs: bool) -> _graphs.GraphSet:
+        dev = self.device
+        self._phi_dev = torch.zeros(len(self._fcws), dtype=torch.int64,
+                                    device=dev)
+        self._fcw_dev = torch.tensor(self._fcws, dtype=torch.int64,
+                                     device=dev)
+        self.out = torch.zeros(self.block, dtype=torch.float32, device=dev)
+        # FSK segment tables: [starts | phase words | tone words] and the
+        # amplitudes, each emitter's ``cap`` rows side by side
+        self._fsk_cap = [-(-self.block // st["sym_ticks"]) + 1
+                         for st in self._fsk]
+        rows = sum(self._fsk_cap)
+        self._seg_words = torch.zeros((3, rows), dtype=torch.int64,
+                                      device=dev)
+        self._seg_amps = torch.zeros(rows, dtype=torch.float32, device=dev)
+        pin = dev.type == "cuda"
+        # two host buffers in turns, each with the event after its copy
+        self._seg_host = [[torch.zeros((3, rows), dtype=torch.int64,
+                                       pin_memory=pin),
+                           torch.zeros(rows, dtype=torch.float32,
+                                       pin_memory=pin), None]
+                          for _ in range(2)]
+        self._seg_turn = 0
+        return _graphs.GraphSet(dev, generators=(self._gen,),
+                                enabled=use_graphs)
 
-    def _cycles(self, i: int) -> torch.Tensor:
-        return nco.to_cycles(self._ramp(self._phis[i], self._fcws[i],
-                                        self._n))
+    def _load_segments(self) -> None:
+        """This block's FSK stretches into the device tables: written on
+        the host into the pinned buffer the card read two blocks ago,
+        then copied without blocking on the current stream."""
+        entry = self._seg_host[self._seg_turn]
+        words, amps, event = entry
+        if event is not None:
+            event.synchronize()         # the card has read this buffer
+        w, a = words.numpy(), amps.numpy()
+        w[0], w[1:], a[:] = self.block, 0, 0.0
+        at = 0
+        for st, cap in zip(self._fsk, self._fsk_cap):
+            starts, phis, fcws, amp = self._fsk_segments(st)
+            k = len(starts)
+            w[0, at:at + k], w[1, at:at + k], w[2, at:at + k] = (
+                starts, phis, fcws)
+            a[at:at + k] = amp
+            at += cap
+        self._seg_words.copy_(words, non_blocking=True)
+        self._seg_amps.copy_(amps, non_blocking=True)
+        if self.device.type == "cuda":
+            entry[2] = torch.cuda.Event()
+            entry[2].record(torch.cuda.current_stream(self.device))
+        self._seg_turn ^= 1
+
+    def _body(self) -> None:
+        """The block into ``out`` from the device buffers; the carrier
+        phases advanced."""
+        two_pi = float(np.float32(2 * np.pi))
+        x, n = self.out, self._n
+
+        def cycles(i):
+            return nco.to_cycles((self._phi_dev[i] + nco.mul_mod48(
+                n, self._fcw_dev[i])) & nco.MASK48)
+        x.zero_()
+        for amp, ci, mod in self._tones:
+            carrier = torch.cos(two_pi * cycles(ci))
+            if mod is not None:
+                mi, depth = mod
+                carrier *= 1.0 + depth * torch.sin(two_pi * cycles(mi))
+            x += amp * carrier
+        at = 0
+        for cap in self._fsk_cap:
+            starts, phis, fcws = self._seg_words[:, at:at + cap]
+            amps = self._seg_amps[at:at + cap]
+            seg = torch.searchsorted(starts, n, right=True) - 1
+            words = (phis[seg] + nco.mul_mod48(n - starts[seg],
+                                               fcws[seg])) & nco.MASK48
+            x += amps[seg] * torch.cos(two_pi * nco.to_cycles(words))
+            at += cap
+        if self.noise_rms:
+            x += self.noise_rms * torch.randn(
+                self.block, generator=self._gen, device=self.device)
+        self._phi_dev.copy_((self._phi_dev + nco.mul_mod48(
+            self.block, self._fcw_dev)) & nco.MASK48)
+
+    @property
+    def graphs(self) -> dict:
+        """The compiled block's graphs ({} on the CPU or eager)."""
+        return self._graphs.graphs
 
     def _fsk_segments(self, st: dict) -> tuple:
         """Host-side FSK symbol clock for one block: for each stretch of
@@ -331,30 +428,8 @@ class DeviceSceneSource:
     def next_block(self, n: int | None = None) -> torch.Tensor:
         if n is not None and n != self.block:
             raise ValueError(f"block is {self.block}, asked for {n}")
-        two_pi = float(np.float32(2 * np.pi))
-        x = torch.zeros(self.block, dtype=torch.float32, device=self.device)
-        for amp, ci, mod in self._tones:
-            carrier = torch.cos(two_pi * self._cycles(ci))
-            if mod is not None:
-                mi, depth = mod
-                carrier *= 1.0 + depth * torch.sin(two_pi * self._cycles(mi))
-            x += amp * carrier
-        # FSK tones: each symbol's stretch of the block is the ramp of its
-        # tone, restarted at the phase carried to the stretch's start
-        for st in self._fsk:
-            starts, phis, fcws, amps = (
-                torch.tensor(v, dtype=dt, device=self.device)
-                for v, dt in zip(self._fsk_segments(st),
-                                 (torch.int64, torch.int64, torch.int64,
-                                  torch.float32)))
-            seg = torch.searchsorted(starts, self._n, right=True) - 1
-            words = (phis[seg] + nco.mul_mod48(self._n - starts[seg],
-                                               fcws[seg])) & nco.MASK48
-            x += amps[seg] * torch.cos(two_pi * nco.to_cycles(words))
-        if self.noise_rms:
-            x += self.noise_rms * torch.randn(
-                self.block, generator=self._gen, device=self.device)
-        for i, fcw in enumerate(self._fcws):
-            self._phis[i] = (self._phis[i] + fcw * self.block) % (1 << 48)
+        if self._fsk:
+            self._load_segments()
+        self._graphs.run(("scene",), self._body)
         self.ticks = (self.ticks + self.block) % (1 << 48)
-        return x
+        return self.out if self._alias else self.out.clone()

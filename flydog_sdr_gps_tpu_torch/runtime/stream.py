@@ -87,6 +87,7 @@ class StreamEngine:
         self.subscribers: list[Callable] = []
         self.resets = 0
         self._last_x: torch.Tensor | None = None   # raw block (waterfall)
+        self._x_ready = None            # event after it was made (card)
         # host buffers of the packed fetch: two, used in turns, made once
         # at the largest bucket's length (pinning memory stalls the card,
         # so it is kept off the block loop) and sliced for smaller ones
@@ -185,13 +186,19 @@ class StreamEngine:
     # -- data plane ------------------------------------------------------
     def _next_x(self) -> tuple[int, torch.Tensor]:
         """The source's tick and next block on the device.  The block is
-        kept as ``_last_x`` (the waterfall's input): the source's own
-        tensor, which the next block does not overwrite."""
+        kept as ``_last_x`` (the waterfall's input), and on a card
+        ``_x_ready`` is an event recorded just after it was made (before
+        the step), which a consumer on another stream waits on.  A
+        compiled source's block is its output buffer, which its next
+        block overwrites: a consumer that keeps it longer copies it
+        (``WfSubsystem.ingest`` does, and makes the caller's stream wait
+        for its copy)."""
         ticks = getattr(self.source, "ticks", 0)
         x = self.source.next_block(self.params.ddc.adc_block)
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x).to(self.device)
         self._last_x = x            # raw block for waterfall taps
+        self._x_ready = _ready_event(x)
         return ticks, x
 
     def _advance(self) -> tuple[torch.Tensor, rx.RxTaps]:
@@ -379,6 +386,16 @@ class StreamEngine:
         the GPS-timestamped IQ headers (`rx/rx_sound.cpp:654-661`)."""
         clk = clock_hz or self.params.adc_clock
         return self.block_ticks, self.block_ticks / clk
+
+
+def _ready_event(x: torch.Tensor):
+    """An event recorded on the current stream of ``x``'s card (None on
+    the CPU)."""
+    if not x.is_cuda:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(x.device))
+    return event
 
 
 def pack_columns(taps: rx.RxTaps, x: torch.Tensor,

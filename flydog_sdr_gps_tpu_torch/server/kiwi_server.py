@@ -1771,7 +1771,8 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                     and c.wf_slot is not None
                     for c in self.conns.values()):
                 await loop.run_in_executor(
-                    None, self.wf.ingest, self.engine._last_x)
+                    None, self.wf.ingest, self.engine._last_x,
+                    getattr(self.engine, "_x_ready", None))
             t2 = time.monotonic()
             # wait for the host copy in an executor thread, so that it
             # overlaps the next block's dispatch and device compute;

@@ -995,3 +995,205 @@ def test_a_failed_capture_raises_and_never_runs_eagerly(card):
     with pytest.raises(RuntimeError, match="capture of"):
         step.run(("bad",), body)
     assert len(calls) == 2 and not step.graphs
+
+
+# -- the other compiled programs (CUDA graphs) --------------------------------
+
+def _leaves(obj) -> list:
+    if obj is None:
+        return []
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, (list, tuple)):
+        return [t for x in obj for t in _leaves(x)]
+    if not dataclasses.is_dataclass(obj):
+        return []
+    return [t for f in dataclasses.fields(obj)
+            for t in _leaves(getattr(obj, f.name))]
+
+
+def _all_equal(got, want) -> bool:
+    a, b = _leaves(got), _leaves(want)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_captured_scene_source_equals_eager_on_card(card):
+    """The scene source as a graph (carrier phases on the card, FSK
+    segment tables through pinned buffers, the noise generator registered
+    with the graph) against the eager source: every block to the bit."""
+    from flydog_sdr_gps_tpu_torch.runtime import DeviceSceneSource
+    tones = _GRAPH_TONES + [
+        (518.0e3 + 1000.0, 0.05, ("fsk", 3, 170.0, [1, 0, 1, 1, 0], 7)),
+        (10.1387e6, 0.1, ("fsk", 20, 1.4648, [0, 1, 2, 3], 6))]
+    kw = dict(tones=tones, noise_rms=1e-3, block=64 * 10416, device=card,
+              seed=4)
+    # the compiled source first: its capture follows its eager first
+    # block at once (a capture that overlapped that block corrupted it)
+    for pair in range(4):
+        graphs = DeviceSceneSource(**kw)
+        eager = DeviceSceneSource(**kw, use_graphs=False)
+        for blk in range(8 if pair == 0 else 2):
+            got, want = graphs.next_block(), eager.next_block()
+            assert torch.equal(got, want), (pair, blk)
+            assert got is graphs.out
+        assert list(graphs.graphs) == [("scene",)]
+
+
+def test_captured_waterfall_equals_eager_on_card(card):
+    """Four slots (one a two-block zoom) on the chains' stream, fed the
+    engine's blocks with their ready events: rows equal to the eager
+    arithmetic (``wf_ingest``/``wf_frame``) to the bit, through a mask
+    change."""
+    from flydog_sdr_gps_tpu_torch.models import waterfall as wf_model
+    from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+    eng = _graph_engine(card, True)
+    wf = WfSubsystem(eng.params.adc_clock, 30.0e6, capacity=4, device=card)
+    keys = [(0, 0, "cma"), (5, 3000, "max"), (9, 9000, "min")]
+    block = eng.params.ddc.adc_block
+    deep = next(z for z in range(15)
+                if wf_model.make_wf_params(z).ingest_blocks(block) == 2)
+    keys.append((deep, 20000, "cma"))
+    slots = [wf.attach(*k) for k in keys]
+    eager = []
+    for s in slots:
+        eager.append(dict(st=wf_model.init_state(s.params, card), acc=[],
+                          tune=(s.tune[0].clone(), s.tune[1].clone())))
+    for blk in range(6):
+        if blk == 4:
+            wf.set_masked([(s.cf - 1e3, s.cf + 1e3) for s in slots])
+        eng.run_block()
+        wf.ingest(eng._last_x, eng._x_ready)
+        for s, e in zip(slots, eager):
+            e["acc"].append(eng._last_x.clone())
+            if len(e["acc"]) == s.params.ingest_blocks(block):
+                e["st"] = wf_model.wf_ingest(s.params, e["st"],
+                                             torch.cat(e["acc"]), *e["tune"])
+                e["acc"] = []
+        for s, e in zip(slots, eager):
+            mask = wf._device_mask(s.cf, s.params.span)
+            want = wf_model.wf_frame(s.params, e["st"], "hanning", s.interp,
+                                     mask=mask).cpu().numpy()
+            np.testing.assert_array_equal(wf.frame(s), want,
+                                          err_msg=f"{s.key}, block {blk}")
+    assert any(k[0] == "ingest" for k in wf.graphs)
+    assert any(k[0] == "frame" for k in wf.graphs)
+
+
+def test_waterfall_control_plane_beside_captures_on_card(card):
+    """``attach``, ``detach`` and ``set_masked`` from a second thread
+    while the first ingests and reads rows, each new zoom a capture on
+    that thread: no capture fails, and a slot that stays attached all
+    along gives the eager arithmetic's row to the bit once the second
+    thread stops (a control-plane copy recorded into a graph would run
+    again at every replay and part them)."""
+    import threading
+
+    from flydog_sdr_gps_tpu_torch.models import waterfall as wf_model
+    from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+    eng = _graph_engine(card, True)
+    wf = WfSubsystem(eng.params.adc_clock, 30.0e6, capacity=4, device=card)
+    keep = wf.attach(0, 0, "cma")
+    assert keep.params.ingest_blocks(eng.params.ddc.adc_block) == 1
+    twin = dict(st=wf_model.init_state(keep.params, card),
+                tune=(keep.tune[0].clone(), keep.tune[1].clone()))
+    stop, errors = threading.Event(), []
+
+    def control():
+        try:
+            z = 1
+            while not stop.is_set():
+                s = wf.attach(z, 1000 * z, ("max", "min", "cma")[z % 3])
+                wf.set_masked([(9.9e6 + z * 1e3, 9.95e6 + z * 1e3)])
+                stop.wait(0.002)
+                wf.detach(s)
+                z = z % 12 + 1
+        except Exception as e:              # noqa: BLE001 — reported below
+            errors.append(e)
+
+    other = threading.Thread(target=control)
+    other.start()
+    try:
+        for _ in range(24):
+            eng.run_block()
+            wf.ingest(eng._last_x, eng._x_ready)
+            twin["st"] = wf_model.wf_ingest(keep.params, twin["st"],
+                                            eng._last_x.clone(),
+                                            *twin["tune"])
+            for s in list(wf.slots.values()):
+                assert np.isfinite(wf.frame(s)).all()
+    finally:
+        stop.set()
+        other.join()
+    assert not errors, errors
+    assert not wf._graphs._failed
+    assert sum(k[0] == "ingest" for k in wf.graphs) > 2
+    wf.set_masked([])
+    for _ in range(2):
+        eng.run_block()
+        wf.ingest(eng._last_x, eng._x_ready)
+        twin["st"] = wf_model.wf_ingest(keep.params, twin["st"],
+                                        eng._last_x.clone(), *twin["tune"])
+    want = wf_model.wf_frame(keep.params, twin["st"], "hanning",
+                             "cma").cpu().numpy()
+    np.testing.assert_array_equal(wf.frame(keep), want)
+
+
+def test_captured_gps_sky_and_tracking_equal_eager_on_card(card):
+    """The sky (noise 0 and noise at the same generator state) and the
+    tracking step with its pack, captured, against eager twins: every
+    chunk, every channel's chips and prompts, the state, to the bit."""
+    from flydog_sdr_gps_tpu_torch.models.gps import manager, scene
+    rx_ = scene.ecef_from_lla(47.37, 8.54, 450.0)
+    t0 = 345600.0 + 3.0
+    ephs = scene.visible_constellation(rx_, t0, n_sats=6)
+    for noise_ in (0.0, 0.9):
+        skies = [scene.GpsScene(rx_, ephs, t0, duration=30.0, noise=noise_,
+                                clock_ppm=0.4, amplitude=0.5, device=card,
+                                use_graphs=g) for g in (False, True)]
+        mgrs = [manager.GpsManager(prns=tuple(ephs), max_chans=6, device=card,
+                                   use_graphs=g) for g in (False, True)]
+        for chunk in range(6):
+            xs = [s.next_block(16368 * 100) for s in skies]
+            assert torch.equal(xs[1], xs[0]), (noise_, chunk)
+            for m, x in zip(mgrs, xs):
+                m.process(x, search=chunk == 0)
+            assert set(mgrs[1].channels) == set(mgrs[0].channels)
+            for prn, ch in mgrs[1].channels.items():
+                assert ch.chips == mgrs[0].channels[prn].chips
+            assert _all_equal(mgrs[1]._track_state, mgrs[0]._track_state)
+        assert mgrs[1].channels and skies[1].graphs
+
+
+def test_captured_mesh_step_equals_eager_on_card(card):
+    """The mesh step on a (2, 2) mesh of the card as one graph, against
+    the eager mesh step through a SET and a retune: taps and state to the
+    bit, kernel 2 credited four times a block."""
+    from flydog_sdr_gps_tpu_torch import parallel
+    from flydog_sdr_gps_tpu_torch.runtime import (DeviceSceneSource,
+                                                  ShardedStreamEngine)
+
+    def engine(use_graphs):
+        params = rx.RxParams(num_channels=64, audio_block=256)
+        src = DeviceSceneSource(tones=_GRAPH_TONES, noise_rms=3e-4,
+                                block=params.ddc.adc_block, device=card)
+        eng = ShardedStreamEngine(params, src, use_graphs=use_graphs,
+                                  mesh=parallel.make_mesh(
+                                      2, 2, devices=[card] * 4))
+        eng.set_channel(0, freq_hz=7.100e6, mode=demod.MODE_AM)
+        return eng
+    eager, graphs = engine(False), engine(True)
+    assert graphs.program is not None and graphs.program.whole
+    for blk in range(6):
+        for e in (eager, graphs):
+            if blk == 2:
+                e.set_channel(33, freq_hz=14.200e6, mode=demod.MODE_USB,
+                              nr_notch_on=True)
+            if blk == 4:
+                e.retune_all(e.params.adc_clock * (1 + 4e-7))
+        n2 = kernels.stage2.launches
+        got = graphs.run_block()
+        assert kernels.stage2.launches == n2 + 4
+        want = eager.run_block()
+        assert _all_equal(got, want), blk
+        assert _all_equal(graphs.state, eager.state), blk
+    assert len(graphs.program._graphs[card].graphs) == 2

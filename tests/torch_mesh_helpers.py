@@ -52,10 +52,13 @@ def port_tunings(tp, lms: bool = False) -> trx.RxTuning:
     return trx.with_gates(t)
 
 
-def run_two_process_worker(rank, init, out_path, blocks):
+def run_two_process_worker(rank, init, out_path, blocks, program=False):
     """One process of a (2, 2) mesh whose time axis spans two gloo
     processes: runs ``blocks`` (its half of each) and pickles the whole-C
-    taps and its DDC carries to ``out_path.<rank>``."""
+    taps and its DDC carries to ``out_path.<rank>``.  ``program``: the
+    compiled mesh step's static-buffer bodies (``ShardedProgram``, a
+    program a segment, the exchanges between them) instead of the eager
+    step."""
     torch.set_num_threads(1)
     tdist.init_distributed(init, 2, rank, backend="gloo")
     mesh = tdist.make_global_mesh(time=2, chan=2, devices=["cpu"] * 2)
@@ -66,8 +69,14 @@ def run_two_process_worker(rank, init, out_path, blocks):
     tts = tpar.shard_rx_tuning(port_tunings(tp, lms=True), mesh)
     half = tp.ddc.adc_block // 2
     out = []
+    prog = tpar.ShardedProgram(tp, mesh, st, tts) if program else None
+    assert prog is None or not prog.whole
     for x in blocks:
-        st, sh_taps = step(st, tts, x[rank * half:(rank + 1) * half])
+        part = x[rank * half:(rank + 1) * half]
+        if prog is None:
+            st, sh_taps = step(st, tts, part)
+        else:
+            sh_taps, st = prog(torch.as_tensor(part)), prog.state
         taps = tpar.gather_taps(sh_taps, mesh, "cpu")
         out.append({f.name: getattr(taps, f.name).numpy()
                     for f in dataclasses.fields(taps)})
