@@ -1433,6 +1433,54 @@ def wf_rows(sock: Sock) -> list[tuple[int, int, np.ndarray]]:
 SERVER_LISTENERS = 32
 
 
+def server_spans(since_ns: int) -> dict[str, list]:
+    """The tracer's spans that started at or after ``since_ns``
+    (``time.monotonic_ns``), by name: those of a server started then."""
+    from flydog_sdr_gps_tpu_torch.utils.trace import get_trace
+    out: dict[str, list] = {}
+    for s in get_trace().span_records():
+        if s.t0 >= since_ns:
+            out.setdefault(s.name, []).append(s)
+    return out
+
+
+def block_starts(spans: dict) -> list[float]:
+    """When each iteration of the block loop started (monotonic s),
+    and when the last one ended: the ``server.block`` spans."""
+    blocks = sorted(spans.get("server.block", []), key=lambda s: s.t0)
+    if not blocks:
+        return []
+    return [s.t0 / 1e9 for s in blocks] + [blocks[-1].t1 / 1e9]
+
+
+def fanout_split(spans: dict) -> dict:
+    """Host ms a block fanned out, from the fan-out's spans: the encode
+    (its job's run in the worker and its loop lag; the executor's queue
+    before the job is not in it), the fan-out after the encode (from the
+    start of ``fanout.snd`` to the end of ``server.fanout``: framing,
+    queueing, the W/F rows, the extensions; the autorun job and its lag
+    taken out) and, keyed by the number of blocks fanned out with it,
+    the autorun units' work."""
+    def ms(name, parent=None):
+        out: dict[int, float] = {}
+        for s in spans.get(name, []):
+            if parent is None or s.parent == parent:
+                out[s.block] = out.get(s.block, 0.0) + (s.t1 - s.t0) / 1e6
+        return out
+    fan = {s.block: s.t1 for s in spans.get("server.fanout", [])}
+    snd = {s.block: s.t0 for s in spans.get("fanout.snd", [])}
+    enc = ms("fanout.encode")
+    for b, v in ms("loop.lag", "fanout.encode").items():
+        enc[b] = enc.get(b, 0.0) + v
+    ar = ms("fanout.autorun")
+    ar_lag = ms("loop.lag", "fanout.autorun")
+    rest = [(fan[b] - snd[b]) / 1e6 - ar.get(b, 0.0) - ar_lag.get(b, 0.0)
+            for b in fan]
+    return dict(encode_ms_per_block=sum(enc.values()) / len(fan),
+                fanout_ms_per_block=float(np.mean(rest)),
+                autorun_ms={b + 1: v for b, v in ar.items()})
+
+
 def server_script(channels: int) -> list[tuple[str, list[str]]]:
     """(what the lane is, the SET commands of its SND socket) for the 32
     listeners, as a KiwiSDR client sends them."""
@@ -1502,7 +1550,7 @@ def autorun_checks(info: dict, unit_samples: list, block: int, starts,
     # the autorun host work a block, and the block a capture completed in:
     # the fan-out of the n-th block runs in the block loop's n-th
     # iteration (0-based), whose length is starts[n]
-    ar = {n: s * 1e3 for n, s in info["autorun_s"]}
+    ar = info["fanout"]["autorun_ms"]
     ms = [ar[n] for n in sorted(ar)]
     around = {}
     for ext, i in completed:
@@ -1619,6 +1667,7 @@ def phase_server(torch, device, channels: int, block: int,
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
+        t_from = time.monotonic_ns()
         runner = None
         if have_aiohttp:
             runner = await server.start()       # an ephemeral port
@@ -1686,9 +1735,10 @@ def phase_server(torch, device, channels: int, block: int,
                      capture=u.ext.capture_samples,
                      results=len(getattr(u.ext, "results", [])))
                 for u in server.autorun.units]
-            info["autorun_s"] = list(server.autorun_s)
             info["spots"] = list(server.autorun.spots)
-        info["starts"] = list(server.block_started)
+        spans = server_spans(t_from)
+        info["starts"] = block_starts(spans)
+        info["fanout"] = fanout_split(spans)
         info["drops"] = sum(c.send_drops for c in server.conns.values())
         info["lags"] = lags
         info["real"] = real
@@ -1831,8 +1881,8 @@ def phase_server(torch, device, channels: int, block: int,
         ms_max=float(steady.max()),
         realtime_factor=float(len(steady) * block_ms / steady.sum()),
         block_period_ms=block_ms, peak_mem_gb=peak_gb,
-        encode_ms_per_block=server.encode_s / server.blocks_fanned * 1e3,
-        fanout_ms_per_block=server.fanout_s / server.blocks_fanned * 1e3,
+        encode_ms_per_block=info["fanout"]["encode_ms_per_block"],
+        fanout_ms_per_block=info["fanout"]["fanout_ms_per_block"],
         loop_lag_ms=dict(mean=float(lags.mean()), p99=float(
             np.percentile(lags, 99)), max=float(lags.max()), n=len(lags)),
         late_blocks=info["late_blocks"], heard_hz=heard,
@@ -2685,6 +2735,7 @@ def phase_navtex_server(torch, device, channels: int, block: int,
         check(eng.seq == 0, "a block ran before the server was started")
         for fn in counters.values():
             fn.launches = 0
+        t_from = time.monotonic_ns()
         server.start_tasks()
         t0 = time.monotonic()
         while NAVTEX_TEXT not in heard() and eng.seq < NAVTEX_BLOCKS:
@@ -2698,7 +2749,7 @@ def phase_navtex_server(torch, device, channels: int, block: int,
             await asyncio.sleep(0.5)
         info["launches"] = {k: fn.launches for k, fn in counters.items()}
         info["blocks"] = eng.seq
-        info["starts"] = list(server.block_started)
+        info["starts"] = block_starts(server_spans(t_from))
     asyncio.run(drive())
     text, launches, blocks = heard(), info["launches"], info["blocks"]
     starts = np.diff(np.asarray(info["starts"])) * 1e3
@@ -2942,6 +2993,7 @@ def phase_mesh_server(torch, device, channels: int, block: int,
         await server.stop()
         await asyncio.sleep(0.05)
         return blocks, launches
+    t_from = time.monotonic_ns()            # the server's spans start here
     blocks, launches = asyncio.run(drive())
     check(server._warm_buckets == set(), "a bucket was prewarmed")
     n_dev = MESH[0] * MESH[1]
@@ -2971,7 +3023,7 @@ def phase_mesh_server(torch, device, channels: int, block: int,
     got_px = strongest_peaks(rows[-1][2].astype(np.float64), 3)
     check(all(abs(g - w) <= 1 for g, w in zip(got_px, want_px)),
           f"mesh W/F peaks {got_px} are not at the carriers {want_px}")
-    starts = np.diff(np.asarray(server.block_started)) * 1e3
+    starts = np.diff(np.asarray(block_starts(server_spans(t_from)))) * 1e3
     steady = starts[2:]
     block_ms = eng.params.ddc.adc_block / eng.params.adc_clock * 1e3
     del server, eng
@@ -3252,9 +3304,8 @@ def phase_compiled(torch, device, channels: int, block: int,
     step = graphs.compiled
     buffers_gb = sum(t.numel() * t.element_size()
                      for t in _state_leaves(step.taps) + [step.x]) / 1e9
-    capture_ms = {"/".join(str(int(v)) if isinstance(v, bool) else str(v)
-                           for v in k): g.capture_ms
-                  for k, g in step.graphs.items()}
+    step_capture_ms = capture_ms(
+        step.graphs, lambda v: str(int(v)) if isinstance(v, bool) else str(v))
     # the launch count of one block and of its back half, eager, and of
     # one replayed block
     eager_ops = device_ops(torch, eager.run_block)
@@ -3324,13 +3375,13 @@ def phase_compiled(torch, device, channels: int, block: int,
         f"{max(during):.2f} ms (block period {block_ms:.3f} ms)")
     # a block stalls when it misses the real-time budget
     check(max(serve_ms[1:]) < block_ms, "a served block stalled")
-    prep_ms = graphs.compiled.graphs[key_large].capture_ms
+    prep_ms, = capture_ms({key_large: None}).values()
     del eager, graphs
     return dict(launches=path_launches, blocks=COMPILED_BLOCKS,
                 steady_blocks=steady, captured_at=captured_at,
                 ms=summary, ms_blocks={k: [list(v) for v in vs]
                                        for k, vs in stats.items()},
-                graphs=len(capture_ms), capture_ms=capture_ms,
+                graphs=len(step_capture_ms), capture_ms=step_capture_ms,
                 pool_gb=pool_gb, buffers_gb=buffers_gb,
                 eager_block=eager_ops, replayed_block=graph_ops,
                 back_half=back_ops, serve_ms=serve_ms,
@@ -3382,9 +3433,13 @@ def steady_median(rows: list, first: int = 2) -> dict:
             for i, name in enumerate(("wall_ms", "host_ms", "device_ms"))}
 
 
-def capture_ms(graphs: dict) -> dict:
-    return {"/".join(str(v) for v in k): round(g.capture_ms, 3)
-            for k, g in graphs.items()}
+def capture_ms(graphs: dict, fmt=str) -> dict:
+    """Each key of ``graphs`` (a ``GraphSet``'s) with the wall ms of its
+    capture: the tracer's last ``graphs.capture`` span of that key."""
+    from flydog_sdr_gps_tpu_torch.utils.trace import get_trace
+    last = {s.detail: (s.t1 - s.t0) / 1e6
+            for s in get_trace().span_records() if s.name == "graphs.capture"}
+    return {"/".join(fmt(v) for v in k): round(last[k], 3) for k in graphs}
 
 
 def phase_programs(torch, device, channels: int, block: int,

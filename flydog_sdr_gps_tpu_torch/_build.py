@@ -27,6 +27,8 @@ import threading
 import time
 from pathlib import Path
 
+from .utils.trace import get_trace
+
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
@@ -143,11 +145,14 @@ def load(path) -> ctypes.CDLL:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; the build and
+    the load are the tracer's span ``build.load``)."""
     global _lib
     with _lock:
         if _lib is None:
+            t0 = time.monotonic_ns()
             _lib = load(build())
+            get_trace().span("build.load", -1, t0)
         return _lib
 
 

@@ -22,7 +22,11 @@ and captures them on a stream of its own:
   them (``_build.credit``);
 - on the CPU, or when the owner asks for no capture (``enabled=False``,
   the eager twin the card's tests hold a capture to), a run is the
-  program's body, with nothing captured.
+  program's body, with nothing captured;
+- each key's eager first run (or :meth:`GraphSet.prepare`'s warm-up) and
+  its capture are the tracer's spans ``graphs.first_run`` and
+  ``graphs.capture``, with the key as their detail (host time; nothing
+  is recorded where nothing is captured).
 
 Graphs of one set share its pool, so they must run in stream order (one
 at a time): an owner whose programs run on two streams keeps a set for
@@ -39,6 +43,7 @@ from typing import Callable, Iterable
 import torch
 
 from . import _build
+from .utils.trace import get_trace
 
 
 def copy_into(dst, src) -> None:
@@ -65,14 +70,14 @@ def copy_into(dst, src) -> None:
 
 
 class Graph:
-    """One captured program: its CUDA graph, the launches each wrapper
+    """One captured program: its CUDA graph and the launches each wrapper
     made during the capture (credited at every replay, so a replayed
-    program counts as an eager one does) and the capture's wall ms."""
+    program counts as an eager one does).  The capture's wall time is
+    the tracer's span ``graphs.capture``."""
 
-    def __init__(self, graph, launches: dict, capture_ms: float):
+    def __init__(self, graph, launches: dict):
         self.graph = graph
         self.launches = launches
-        self.capture_ms = capture_ms
 
     def replay(self) -> None:
         self.graph.replay()
@@ -139,7 +144,9 @@ class GraphSet:
             with self._lock:
                 graph = self.graphs.get(key)
                 if graph is None:
+                    t0 = time.monotonic_ns()
                     fn()                    # this run, and the warm-up
+                    get_trace().span("graphs.first_run", -1, t0, detail=key)
                     self._warm.add(key if warm_key is None else warm_key)
                     self._capture(key, fn)
                     return
@@ -165,9 +172,11 @@ class GraphSet:
                 return
             self._refuse_failed(key)
             if warm_key not in self._warm:
+                t0 = time.monotonic_ns()
                 with torch.cuda.stream(self.stream), \
                         _build.recording() as launches:
                     warm()
+                get_trace().span("graphs.first_run", -1, t0, detail=key)
                 _build.credit(launches)
                 for wrapper, n in launches.items():
                     self.warmup_launches[wrapper] = \
@@ -182,7 +191,7 @@ class GraphSet:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        t0 = time.perf_counter()
+        t0 = time.monotonic_ns()
         # the capture begins after what the caller's stream has queued
         # (the key's eager run): a capture that overlapped that run on
         # the card corrupted its output (a compiled scene source's first
@@ -206,5 +215,5 @@ class GraphSet:
                         except Exception:   # noqa: BLE001 — the first
                             pass            # error is the one to raise
                     raise
-        self.graphs[key] = Graph(graph, dict(launches),
-                                 (time.perf_counter() - t0) * 1e3)
+        get_trace().span("graphs.capture", -1, t0, detail=key)
+        self.graphs[key] = Graph(graph, dict(launches))

@@ -102,13 +102,14 @@ class ExampleExt(Extension):
 @ext_register
 class DevlExt(Extension):
     """Developer scratch extension (`extensions/devl`): exposes the
-    event-trace ring for live profiling."""
+    event-trace ring and the last spans for live profiling."""
     name = "devl"
 
     def command(self, cmd: dict) -> list:
         if "trace" in cmd:
             from ..utils.trace import get_trace
-            dump = "\n".join(get_trace().dump(int(cmd.get("n", 50))))
+            tr, n = get_trace(), int(cmd.get("n", 50))
+            dump = "\n".join(tr.dump(n) + tr.dump_spans(n))
             return [("trace", dump.encode())]
         return []
 

@@ -21,6 +21,7 @@ import torch
 from .. import _graphs
 from ..numerology import ADC_CLOCK_NOM, RX_DECIM_12K
 from ..ops import nco
+from ..utils.trace import get_trace
 
 
 class SampleSource:
@@ -187,6 +188,14 @@ class ThreadedSource(SampleSource):
     `data_pump` task, `platform/common/spi_dev.cpp:168`,
     `rx/data_pump.cpp:292`): production never blocks on the consumer,
     and a block that finds the ring full is dropped and counted.
+
+    Spans of each block taken, numbered by the blocks popped before it
+    (an engine that starts with the source numbers its blocks the
+    same): ``source.wait`` (polling an empty ring; 0 ms when the ring
+    held one), ``source.pop`` (the copy out of the ring and the check
+    for non-finite samples) and ``source.queued`` (from the end of the
+    block's push to the start of its pop).  The producer keeps a push
+    stamp for each block in the ring, in the ring's order.
     """
 
     def __init__(self, inner: SampleSource, block: int,
@@ -197,6 +206,11 @@ class ThreadedSource(SampleSource):
         from . import native
         self.ring = (native.NativeRing or BlockRing)(block, nblocks)
         self._target_fill = max(nblocks * 3 // 4, 1)
+        # each block's push stamp ([monotonic_ns at the end of its push]),
+        # in the ring's order
+        self._stamps: collections.deque = collections.deque()
+        self._popped_stamp = [0]        # the stamp of the block last popped
+        self.popped = 0
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -206,16 +220,36 @@ class ThreadedSource(SampleSource):
             if self.ring.fill >= self._target_fill:
                 self._stop.wait(0.002)
                 continue
-            self.ring.push(self.inner.next_block(self.block))
+            x = self.inner.next_block(self.block)
+            # the stamp goes in before the block, so that a pop always
+            # finds its own; a dropped block takes its stamp back
+            stamp = [0]
+            self._stamps.append(stamp)
+            if self.ring.push(x):
+                self._stamps.pop()
+            else:
+                stamp[0] = time.monotonic_ns()
 
-    def _produce(self, n: int) -> np.ndarray:
+    def next_block(self, n: int) -> np.ndarray:
         if n != self.block:
             raise ValueError(f"block is {self.block}, asked for {n}")
-        while True:
-            x = self.ring.pop()
-            if x is not None:
-                return x
+        tr = get_trace()
+        b = self.popped
+        t0 = time.monotonic_ns()
+        while self.ring.fill == 0:
             time.sleep(0.001)
+        t1 = time.monotonic_ns()
+        tr.span("source.wait", b, t0, t1=t1)
+        x = super().next_block(n)
+        tr.span("source.pop", b, t1)
+        tr.span("source.queued", b, self._popped_stamp[0] or t1, t1=t1)
+        self.popped += 1
+        return x
+
+    def _produce(self, n: int) -> np.ndarray:
+        # next_block saw the ring hold a block, and it alone pops
+        self._popped_stamp = self._stamps.popleft()
+        return self.ring.pop()
 
     @property
     def overruns(self) -> int:

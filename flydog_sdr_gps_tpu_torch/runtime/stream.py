@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import pickle
+import time
 from typing import Callable
 
 import numpy as np
@@ -36,6 +37,7 @@ from ..ops import channelizer as chz
 from ..ops import demod as demod_ops
 from ..ops import fastfir
 from ..ops import nco
+from ..utils.trace import get_trace
 
 
 @dataclasses.dataclass
@@ -188,15 +190,19 @@ class StreamEngine:
         """The source's tick and next block on the device.  The block is
         kept as ``_last_x`` (the waterfall's input), and on a card
         ``_x_ready`` is an event recorded just after it was made (before
-        the step), which a consumer on another stream waits on.  A
-        compiled source's block is its output buffer, which its next
-        block overwrites: a consumer that keeps it longer copies it
-        (``WfSubsystem.ingest`` does, and makes the caller's stream wait
-        for its copy)."""
+        the step), which a consumer on another stream waits on.  A host
+        block's copy to the device is the span ``engine.h2d`` (host time:
+        a copy from pageable memory returns once the stream reached it
+        and the copy is done).  A compiled source's block is its output
+        buffer, which its next block overwrites: a consumer that keeps it
+        longer copies it (``WfSubsystem.ingest`` does, and makes the
+        caller's stream wait for its copy)."""
         ticks = getattr(self.source, "ticks", 0)
         x = self.source.next_block(self.params.ddc.adc_block)
         if isinstance(x, np.ndarray):
+            t0 = time.monotonic_ns()
             x = torch.from_numpy(x).to(self.device)
+            get_trace().span("engine.h2d", self.seq, t0)
         self._last_x = x            # raw block for waterfall taps
         self._x_ready = _ready_event(x)
         return ticks, x
