@@ -227,6 +227,20 @@ def _load_datapump() -> dict:
                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
             return out if ok else None
 
+        def pop_into(self, out: "np.ndarray") -> "np.ndarray | None":
+            """:meth:`pop` into ``out`` (a writable C-contiguous float32
+            array of one block, reused by the caller): returns ``out``,
+            or None, leaving it untouched, when the ring is empty."""
+            if not (isinstance(out, np.ndarray) and out.dtype == np.float32
+                    and out.shape == (self.block,)
+                    and out.flags.c_contiguous and out.flags.writeable):
+                raise ValueError(f"pop_into needs a writable contiguous "
+                                 f"float32 array of {self.block}")
+            ok = _dp.dp_ring_pop(
+                self._h,
+                out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+            return out if ok else None
+
         @property
         def fill(self) -> int:
             return int(_dp.dp_ring_fill(self._h))

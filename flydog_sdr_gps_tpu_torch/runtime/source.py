@@ -4,9 +4,11 @@ Port of :mod:`flydog_sdr_gps_tpu.runtime.source`.
 :class:`SampleSource`, :class:`SyntheticSource`, the capture replays
 :class:`FileSource` and :class:`Int24FileSource` and the
 producer-thread wrapper :class:`ThreadedSource` are host numpy, as in
-the reference.  :class:`DeviceSceneSource` generates the scene on the
-device from exact 48-bit phase words, so no sample crosses the host
-link.  All sources deliver float32 blocks, full scale +-1.0.
+the reference; :class:`BlockStage` stages a threaded source's blocks
+onto the card ahead of the step.  :class:`DeviceSceneSource` generates
+the scene on the device from exact 48-bit phase words, so no sample
+crosses the host link.  All sources deliver float32 blocks, full scale
++-1.0.
 """
 
 from __future__ import annotations
@@ -24,6 +26,10 @@ from ..ops import nco
 from ..utils.trace import get_trace
 
 
+# what a non-finite sample becomes
+NON_FINITE = dict(nan=0.0, posinf=1.0, neginf=-1.0)
+
+
 class SampleSource:
     """Produces consecutive float32 ADC blocks; tracks a 48-bit sample
     counter (the reference's ``ticks_A`` timebase, `verilog/kiwi.v`).
@@ -37,7 +43,7 @@ class SampleSource:
     def next_block(self, n: int) -> np.ndarray:
         x = self._produce(n)
         if not np.all(np.isfinite(x)):
-            x = np.nan_to_num(x, nan=0.0, posinf=1.0, neginf=-1.0)
+            x = np.nan_to_num(x, **NON_FINITE)
         self.ticks = (self.ticks + n) % (1 << 48)
         return x
 
@@ -170,6 +176,18 @@ class BlockRing:
         with self._lock:
             return self._blocks.popleft() if self._blocks else None
 
+    def pop_into(self, out: np.ndarray) -> np.ndarray | None:
+        """:meth:`pop` into ``out`` (a float32 array of one block): returns
+        ``out``, or None, leaving it untouched, when the ring is empty."""
+        if out.dtype != np.float32 or out.shape != (self.block,):
+            raise ValueError(f"pop_into needs a float32 array of "
+                             f"{self.block}")
+        x = self.pop()
+        if x is None:
+            return None
+        out[...] = x
+        return out
+
     @property
     def fill(self) -> int:
         return len(self._blocks)
@@ -196,6 +214,10 @@ class ThreadedSource(SampleSource):
     for non-finite samples) and ``source.queued`` (from the end of the
     block's push to the start of its pop).  The producer keeps a push
     stamp for each block in the ring, in the ring's order.
+
+    :meth:`stage` gives the one :class:`BlockStage` of the source, which
+    takes the blocks through ``next_block`` on a thread of its own once
+    a consumer starts it.
     """
 
     def __init__(self, inner: SampleSource, block: int,
@@ -211,6 +233,8 @@ class ThreadedSource(SampleSource):
         self._stamps: collections.deque = collections.deque()
         self._popped_stamp = [0]        # the stamp of the block last popped
         self.popped = 0
+        self._finite: np.ndarray | None = None  # next_block(out=)'s mask
+        self._stage: BlockStage | None = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -230,17 +254,25 @@ class ThreadedSource(SampleSource):
             else:
                 stamp[0] = time.monotonic_ns()
 
-    def next_block(self, n: int) -> np.ndarray:
+    def next_block(self, n: int, out: np.ndarray | None = None
+                   ) -> np.ndarray:
+        """The next block, waiting while the ring is empty (``EOFError``
+        once the source is closed and the ring empty).  With ``out``, a
+        float32 array of one block that the caller reuses, the block is
+        popped into it and its non-finite samples are replaced there, and
+        ``out`` is returned: no array is made."""
         if n != self.block:
             raise ValueError(f"block is {self.block}, asked for {n}")
         tr = get_trace()
         b = self.popped
         t0 = time.monotonic_ns()
         while self.ring.fill == 0:
+            if self._stop.is_set():
+                raise EOFError("the source is closed")
             time.sleep(0.001)
         t1 = time.monotonic_ns()
         tr.span("source.wait", b, t0, t1=t1)
-        x = super().next_block(n)
+        x = super().next_block(n) if out is None else self._pop_into(out)
         tr.span("source.pop", b, t1)
         tr.span("source.queued", b, self._popped_stamp[0] or t1, t1=t1)
         self.popped += 1
@@ -251,13 +283,178 @@ class ThreadedSource(SampleSource):
         self._popped_stamp = self._stamps.popleft()
         return self.ring.pop()
 
+    def _pop_into(self, out: np.ndarray) -> np.ndarray:
+        """What ``SampleSource.next_block`` does, in ``out``: the pop, the
+        non-finite samples replaced in place (the check's mask is made
+        once), the ticks advanced."""
+        self._popped_stamp = self._stamps.popleft()
+        self.ring.pop_into(out)
+        if self._finite is None:
+            self._finite = np.empty(self.block, bool)
+        if not np.isfinite(out, out=self._finite).all():
+            np.nan_to_num(out, copy=False, **NON_FINITE)
+        self.ticks = (self.ticks + self.block) % (1 << 48)
+        return out
+
+    def stage(self, device: torch.device | str) -> "BlockStage":
+        """The staging of this source's blocks onto ``device`` (one per
+        source); nothing runs until its first :meth:`BlockStage.take`,
+        and from then on it alone takes the source's blocks."""
+        device = torch.device(device)
+        if self._stage is None:
+            self._stage = BlockStage(self, device)
+        elif self._stage.device != device:
+            raise ValueError(f"the source is staged onto "
+                             f"{self._stage.device}, not {device}")
+        return self._stage
+
     @property
     def overruns(self) -> int:
         return self.ring.overruns
 
     def close(self) -> None:
         self._stop.set()
+        if self._stage is not None:
+            self._stage.close()
         self._thread.join(timeout=2)
+
+
+class BlockStage:
+    """A :class:`ThreadedSource`'s blocks staged onto ``device`` one block
+    ahead of the step that takes them, by a thread of their own, so that
+    the step's thread never waits for the ring's copy, the check for
+    non-finite samples or the copy to the card.
+
+    The thread takes block i through the source's ``next_block`` (the
+    one call a block is taken by, with its spans) into host buffer
+    i % 2, then copies it without blocking, on a stream of its own, into
+    device buffer i % 2 and records an event after the copy.  That
+    enqueue is the span ``engine.h2d``, numbered as the source's spans.
+    The four buffers are made when staging starts (page-locked on a
+    card: pinning memory stalls the card, so never in the loop).  Reuse
+    is ordered by events alone:
+
+    - a host buffer is refilled once its previous copy's event is done;
+    - a device buffer is overwritten once the consumer's stream is done
+      with its previous block: taking block i + 1 records an event on
+      the caller's current stream for block i's buffer, and block i + 2's
+      copy waits on it on the card.  A taken block may be read by the
+      caller's stream, and by streams it has waited for, until the block
+      after next is taken.
+
+    On the CPU the buffers are plain memory and the copy synchronous.
+    The thread waits only on its own events, never on the whole device
+    (graphs are captured on other threads meanwhile).
+    """
+
+    def __init__(self, source: ThreadedSource, device: torch.device):
+        self.source = source
+        self.device = device
+        self._cv = threading.Condition()
+        self._staged: collections.deque = collections.deque()  # (i, ticks)
+        self._takes = 0
+        self._closed = False
+        self._error: BaseException | None = None
+        self._thread: threading.Thread | None = None
+
+    def _start(self) -> None:
+        n, dev = self.source.block, self.device
+        cuda = dev.type == "cuda"
+        self._host = [torch.empty(n, dtype=torch.float32, pin_memory=cuda)
+                      for _ in range(2)]
+        self._host_np = [h.numpy() for h in self._host]
+        self._dev = [torch.empty(n, dtype=torch.float32, device=dev)
+                     for _ in range(2)]
+        self._copy = torch.cuda.Stream(dev) if cuda else None
+        # per buffer: the event after its copy, and the event after its
+        # block's last use on the consumer's stream
+        self._copied = [torch.cuda.Event() if cuda else None
+                        for _ in range(2)]
+        self._used = [torch.cuda.Event() if cuda else None
+                      for _ in range(2)]
+        if cuda:
+            for buf in self._dev:
+                buf.record_stream(self._copy)
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="block-stage")
+        self._thread.start()
+
+    def _run(self) -> None:
+        src, tr = self.source, get_trace()
+        i = 0
+        try:
+            while True:
+                k = i % 2
+                if self._copy is not None:
+                    self._copied[k].synchronize()
+                b, ticks = src.popped, src.ticks
+                src.next_block(src.block, out=self._host_np[k])
+                with self._cv:
+                    # block i - 2 in device buffer k is done with once
+                    # block i - 1 was taken
+                    self._cv.wait_for(lambda: self._closed or i < 2
+                                      or self._takes >= i)
+                    if self._closed:
+                        return
+                t0 = time.monotonic_ns()
+                if self._copy is None:
+                    self._dev[k].copy_(self._host[k])
+                else:
+                    with torch.cuda.stream(self._copy):
+                        self._copy.wait_event(self._used[k])
+                        self._dev[k].copy_(self._host[k], non_blocking=True)
+                        self._copied[k].record(self._copy)
+                tr.span("engine.h2d", b, t0)
+                with self._cv:
+                    self._staged.append((i, ticks))
+                    self._cv.notify_all()
+                i += 1
+        except EOFError:
+            pass
+        except Exception as e:  # noqa: BLE001 — take() raises it
+            with self._cv:
+                self._error = e
+        finally:
+            with self._cv:
+                self._closed = True
+                self._cv.notify_all()
+
+    def take(self, block: int) -> tuple[int, torch.Tensor]:
+        """The next block's source tick and its device buffer.  The
+        previous block's buffer is given back after what the caller's
+        current stream has queued, and that stream is made to wait for
+        the block's copy.  A wait for a block not yet staged is the span
+        ``engine.stage_wait`` of ``block`` (microseconds when the stage
+        was ahead).  The first call starts the staging."""
+        if self._thread is None:
+            if self._closed:
+                raise RuntimeError("the block stage stopped")
+            self._start()
+        cur = (torch.cuda.current_stream(self.device)
+               if self._copy is not None else None)
+        if self._takes and cur is not None:
+            self._used[(self._takes - 1) % 2].record(cur)
+        with self._cv:
+            self._takes += 1
+            self._cv.notify_all()
+            t0 = time.monotonic_ns()
+            self._cv.wait_for(lambda: self._staged or self._closed)
+            get_trace().span("engine.stage_wait", block, t0)
+            if not self._staged:
+                raise RuntimeError("the block stage stopped") \
+                    from self._error
+            i, ticks = self._staged.popleft()
+        if cur is not None:
+            cur.wait_event(self._copied[i % 2])
+        return ticks, self._dev[i % 2]
+
+    def close(self) -> None:
+        """Stop the staging thread (a block it holds is dropped)."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=2)
 
 
 class DeviceSceneSource:

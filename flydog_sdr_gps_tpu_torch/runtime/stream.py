@@ -38,6 +38,7 @@ from ..ops import demod as demod_ops
 from ..ops import fastfir
 from ..ops import nco
 from ..utils.trace import get_trace
+from .source import ThreadedSource
 
 
 @dataclasses.dataclass
@@ -90,6 +91,7 @@ class StreamEngine:
         self.resets = 0
         self._last_x: torch.Tensor | None = None   # raw block (waterfall)
         self._x_ready = None            # event after it was made (card)
+        self._stage = block_stage(source, self.device)
         # host buffers of the packed fetch: two, used in turns, made once
         # at the largest bucket's length (pinning memory stalls the card,
         # so it is kept off the block loop) and sliced for smaller ones
@@ -190,19 +192,28 @@ class StreamEngine:
         """The source's tick and next block on the device.  The block is
         kept as ``_last_x`` (the waterfall's input), and on a card
         ``_x_ready`` is an event recorded just after it was made (before
-        the step), which a consumer on another stream waits on.  A host
+        the step), which a consumer on another stream waits on.
+
+        A staged block (:class:`..runtime.source.BlockStage`) is already
+        on the card or being copied there: the current stream waits for
+        its copy, and the step's thread waits only while the block is
+        not yet staged (the span ``engine.stage_wait``).  Its buffer is
+        overwritten once the block after next is taken.  Otherwise a host
         block's copy to the device is the span ``engine.h2d`` (host time:
         a copy from pageable memory returns once the stream reached it
         and the copy is done).  A compiled source's block is its output
-        buffer, which its next block overwrites: a consumer that keeps it
-        longer copies it (``WfSubsystem.ingest`` does, and makes the
+        buffer, which its next block overwrites.  A consumer that keeps a
+        block longer copies it (``WfSubsystem.ingest`` does, and makes the
         caller's stream wait for its copy)."""
-        ticks = getattr(self.source, "ticks", 0)
-        x = self.source.next_block(self.params.ddc.adc_block)
-        if isinstance(x, np.ndarray):
-            t0 = time.monotonic_ns()
-            x = torch.from_numpy(x).to(self.device)
-            get_trace().span("engine.h2d", self.seq, t0)
+        if self._stage is not None:
+            ticks, x = self._stage.take(self.seq)
+        else:
+            ticks = getattr(self.source, "ticks", 0)
+            x = self.source.next_block(self.params.ddc.adc_block)
+            if isinstance(x, np.ndarray):
+                t0 = time.monotonic_ns()
+                x = torch.from_numpy(x).to(self.device)
+                get_trace().span("engine.h2d", self.seq, t0)
         self._last_x = x            # raw block for waterfall taps
         self._x_ready = _ready_event(x)
         return ticks, x
@@ -392,6 +403,17 @@ class StreamEngine:
         the GPS-timestamped IQ headers (`rx/rx_sound.cpp:654-661`)."""
         clk = clock_hz or self.params.adc_clock
         return self.block_ticks, self.block_ticks / clk
+
+
+def block_stage(source, device: torch.device):
+    """The staging of ``source``'s blocks onto ``device`` ahead of the
+    step, where it pays: a threaded host source feeding a card.  None
+    for any other source (a compiled one makes its block on the card)
+    and for a CPU engine: the block is then taken on the step's
+    thread."""
+    if device.type == "cuda" and isinstance(source, ThreadedSource):
+        return source.stage(device)
+    return None
 
 
 def _ready_event(x: torch.Tensor):

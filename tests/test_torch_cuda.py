@@ -1197,3 +1197,63 @@ def test_captured_mesh_step_equals_eager_on_card(card):
         assert _all_equal(got, want), blk
         assert _all_equal(graphs.state, eager.state), blk
     assert len(graphs.program._graphs[card].graphs) == 2
+
+
+def test_staged_blocks_reach_the_card_whole(card):
+    """A threaded host source feeding an engine on the card is staged
+    (``BlockStage``: two pinned and two device buffers in turns).  Over
+    48 served blocks, with a slow step (a spin kernel after it) and the
+    waterfall ingesting ``_last_x`` after ``_x_ready``, the block the
+    step's stream saw is its host block to the bit, its ticks are
+    sample-exact, and the waterfall's rows equal those of a waterfall fed
+    plain uploads of the same blocks: no buffer is reused before its
+    events."""
+    from flydog_sdr_gps_tpu_torch.runtime import StreamEngine, ThreadedSource
+    from flydog_sdr_gps_tpu_torch.server.wf_service import WfSubsystem
+    params = rx.RxParams(num_channels=64, audio_block=256)
+    n = params.ddc.adc_block
+
+    class Replay:
+        """Distinct blocks, each from its own seed."""
+        adc_clock = params.adc_clock
+
+        def __init__(self):
+            self.k = 0
+
+        @staticmethod
+        def block(k):
+            return 0.1 * np.random.default_rng(k).standard_normal(
+                n, dtype=np.float32)
+
+        def next_block(self, _n):
+            self.k += 1
+            return self.block(self.k - 1)
+
+    src = ThreadedSource(Replay(), block=n, nblocks=8)
+    eng = StreamEngine(params, src, device=card)
+    eng.set_channel(0, freq_hz=7.1e6, mode=demod.MODE_AM)
+    keys = [(0, 0, "cma"), (5, 3000, "max")]
+    wf = WfSubsystem(params.adc_clock, 30.0e6, capacity=2, device=card)
+    twin = WfSubsystem(params.adc_clock, 30.0e6, capacity=2, device=card)
+    slots = [wf.attach(*k) for k in keys]
+    twins = [twin.attach(*k) for k in keys]
+    idx = np.array([0, 1, 2, 3])
+    seen = []
+    try:
+        assert eng._stage is not None
+        for k in range(48):
+            eng.run_block_gather(idx)
+            torch.cuda._sleep(20_000_000)   # ~10 ms: the stage runs ahead
+            seen.append(eng._last_x.clone())
+            wf.ingest(eng._last_x, eng._x_ready)
+            twin.ingest(torch.from_numpy(Replay.block(k)).to(card))
+            assert eng.block_ticks == k * n and eng.seq == k + 1
+            for s, t in zip(slots, twins):
+                np.testing.assert_array_equal(wf.frame(s), twin.frame(t),
+                                              err_msg=f"{s.key}, block {k}")
+        assert eng._stage._thread.is_alive()
+        for k, x in enumerate(seen):
+            assert x.cpu().numpy().tobytes() == Replay.block(k).tobytes(), k
+    finally:
+        src.close()
+    assert not eng._stage._thread.is_alive()

@@ -18,10 +18,12 @@ cell, prints its result line (as ``benchmark/run.py --trace 1`` does),
 then compares the program's spans with the wrappers the benchmark puts
 around its methods: ``source.wait`` + ``source.pop`` against the outside
 ``source.next_block``, the inside fan-out's children and their loop lags
-against the outside ``server.fanout``, and the device-idle time of the
-traced blocks, by the program's span it falls in (on the clock
-``_program.clock_tie`` gives, with the correction it made).  JSON lines on
-standard output; ``--cpu`` runs a small cell on the CPU (a rehearsal).
+against the outside ``server.fanout``, the staged-ahead share of a staged
+source's blocks (those whose ``engine.stage_wait`` was under 1 ms), and
+the device-idle time of the traced blocks, by the program's span it
+falls in (on the clock ``_program.clock_tie`` gives, with the correction
+it made).  JSON lines on standard output; ``--cpu`` runs a small cell on
+the CPU (a rehearsal).
 ``micro`` times the tracer's own work on this host, below the runs'
 noise: one span (``EventTrace.span``, on and off), and what
 ``KiwiServer._job`` adds to an executor call (run inline, so that no
@@ -160,6 +162,19 @@ def micro(args) -> None:
     print(json.dumps(res), flush=True)
 
 
+def staged_ahead(spans) -> dict | None:
+    """The blocks of a staged source (``engine.stage_wait``, the step's
+    thread's wait for its staged block): how many, the mean and longest
+    wait, and the share staged ahead, whose wait was under 1 ms."""
+    import _program as prg
+    waits = [prg.ms(s) for s in spans if s.name == "engine.stage_wait"]
+    if not waits:
+        return None
+    return dict(blocks=len(waits), wait_ms=statistics.mean(waits),
+                wait_max_ms=max(waits), staged_ahead_pct=100.0 * sum(
+                    1 for w in waits if w < 1.0) / len(waits))
+
+
 def agree(args) -> None:
     from benchmark import harness, report
     import _program as prg
@@ -188,25 +203,30 @@ def agree(args) -> None:
         res["jobs_a_block"] = sum(1 for s in inside
                                   if s.name == "loop.lag") / n_blocks
 
-    def by_block(name):
-        per: dict[int, float] = {}
-        for s in inside:
-            if s.name == name:
-                per[s.block] = per.get(s.block, 0.0) + prg.ms(s)
-        return per
-    # the ingest: source.wait + source.pop against source.next_block
-    nb = {b: (e - a) * 1e3 for n, b, a, e in outside
-          if n == "source.next_block"}
-    wait, pop = by_block("source.wait"), by_block("source.pop")
-    both = [b for b in nb if b in pop]
-    if both:
-        o = statistics.mean(nb[b] for b in both)
-        i = statistics.mean(wait.get(b, 0.0) + pop[b] for b in both)
-        res["ingest"] = dict(blocks=len(both), outside_next_block_ms=o,
-                             wait_ms=statistics.mean(wait.get(b, 0.0)
-                                                     for b in both),
-                             pop_ms=statistics.mean(pop[b] for b in both),
+    # the ingest: source.wait + source.pop against the source.next_block
+    # call they lie in (paired by time: a staged source takes its blocks
+    # ahead of the engine whose number the outside span bears)
+    rows = []
+    for n, _b, a, e in outside:
+        if n != "source.next_block":
+            continue
+        got = {k: sum(prg.ms(s) for s in inside if s.name == k
+                      and a * 1e9 <= s.t0 and s.t1 <= e * 1e9)
+               for k in ("source.wait", "source.pop")}
+        if got["source.pop"]:
+            rows.append(((e - a) * 1e3, got["source.wait"],
+                         got["source.pop"]))
+    if rows:
+        o = statistics.mean(r[0] for r in rows)
+        i = statistics.mean(r[1] + r[2] for r in rows)
+        res["ingest"] = dict(blocks=len(rows), outside_next_block_ms=o,
+                             wait_ms=statistics.mean(r[1] for r in rows),
+                             pop_ms=statistics.mean(r[2] for r in rows),
                              inside_ms=i, gap_pct=100.0 * (i - o) / o)
+    # the staged ingest: how long the step's thread waited for its block
+    stage = staged_ahead(inside)
+    if stage is not None:
+        res["stage"] = stage
     # the fan-out: children and their loop lags inside the outside span
     fan = {b: (a * 1e9, e * 1e9) for n, b, a, e in outside
            if n == "server.fanout"}
@@ -241,7 +261,8 @@ def agree(args) -> None:
     t = out["trace"]
     if t is not None and t.kernels:
         groups = [
-            ("ingest", {"source.wait", "source.pop", "engine.h2d"}),
+            ("ingest", {"source.wait", "source.pop", "engine.h2d",
+                        "engine.stage_wait"}),
             ("fanout", {"server.fanout"} | set(FANOUT_KIDS)),
             ("step, not ingest", {"server.step"}),
             ("wf_ingest", {"server.wf_ingest"}),
