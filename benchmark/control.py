@@ -40,7 +40,7 @@ def readings(cell, seed: int, seconds: float, device: str = "cuda",
     line = dict(workload=cell.name, seed=seed)
     for side, nums in (("program", out["numbers"]),
                        ("control", out["control"])):
-        ok, rows = judge.verdict(nums, lim)
+        ok, rows = judge.verdict(nums, lim, out["required"])
         line[side] = nums
         line[side + "_correct"] = ok
         line[side + "_checks"] = {k: [v, limit] for k, v, limit in rows}

@@ -9,6 +9,13 @@ the ring.  The seed sets the noise and each tone's starting phase.  The
 blocks are made on the device in a few large calls and kept in host
 memory, where a capture card would deliver them.
 
+The ADC runs on its own oscillator.  A configuration that states
+``adc_ppm`` puts it that far off the nominal ``adc_clock_hz``: the scene
+is sampled at ``adc_clock_hz * (1 + adc_ppm * 1e-6)`` (and paced at that
+rate), so a tone lies ``-adc_ppm`` off where the nominal clock's tuning
+words look for it, which is what a GPS clock correction corrects.
+Without the key the ADC runs at the nominal clock.
+
 ``next_block`` is what a sample source offers the program's
 ``ThreadedSource``: it stamps each block's due time, the instant its
 last sample would leave the ADC.  Free, a block is released when asked
@@ -31,15 +38,18 @@ class AdcRing:
     def __init__(self, cfg: dict, adc_block: int, seed: int, device,
                  paced: bool, warm: int = 0):
         self.adc_clock = float(cfg["adc_clock_hz"])
+        ppm = cfg.get("adc_ppm")
+        self.true_clock = (self.adc_clock if ppm is None
+                           else self.adc_clock * (1.0 + float(ppm) * 1e-6))
         self.block = adc_block
         self.paced = paced
-        self.period = adc_block / self.adc_clock
+        self.period = adc_block / self.true_clock
         scene = cfg["scene"]
         nring = int(cfg["ring_blocks"])
         n = nring * adc_block
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed) % (1 << 63))
-        cycles_per_ring = n / self.adc_clock
+        cycles_per_ring = n / self.true_clock
         t = torch.arange(n, dtype=torch.float64, device=device)
         x = torch.zeros(n, dtype=torch.float64, device=device)
         for tone in scene["tones"]:

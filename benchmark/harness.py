@@ -13,12 +13,20 @@ starts) and every slot of the source's ring has held a block; the
 window follows for ``seconds``.  Then every sampled delivery is awaited, the
 peak memory is read, the program is stopped and freed, and the sampled
 blocks are held to the plain reference (:mod:`.reference`).
+
+A configuration may name ``parts``: what its deployment runs beside the
+receiver, each found by name as ``parts/<name>.py`` (see
+``parts/__init__.py``).  A part adds keyword arguments to the server,
+may look at each sampled block, and gives numbers that join the run's,
+each held to the cell's limit of that name.  A configuration without
+parts builds and runs the receiver alone.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import functools
 import gc
 import glob
 import importlib.util
@@ -94,6 +102,17 @@ def find_cell(root: str, name: str) -> Cell:
                 int(cell["chips"]))
 
 
+PARTS = os.path.join(HERE, "parts")
+
+
+def module_at(path: str, name: str):
+    """The module of the file ``path``, loaded under ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(metric: str):
     """The per-layer metric's reader, ``metrics/<name up to its first
     dot>.py`` (its function ``read``)."""
@@ -101,12 +120,16 @@ def reader(metric: str):
     folder = os.path.join(HERE, "metrics")
     if folder not in sys.path:
         sys.path.insert(0, folder)          # the readers' shared helpers
-    path = os.path.join(folder, base + ".py")
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{base}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return module_at(os.path.join(folder, base + ".py"),
+                     f"bench_metric_{base}").read
+
+
+def part(name: str):
+    """The part ``<PARTS>/<name>.py``."""
+    path = os.path.join(PARTS, name + ".py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"no part {name!r}: {path} is not there")
+    return module_at(path, f"bench_part_{name}")
 
 
 def kernel_names(metric: str) -> list[str]:
@@ -136,7 +159,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
         detail: list | None = None) -> dict:
     """One run; returns the result line's fields.  ``install(eng,
     server)`` is called once the program is built (tests plant faults
-    there); ``control`` also computes the control's numbers (see
+    there).  ``control`` also computes the control's numbers (see
     :func:`check`)."""
     import torch
     from flydog_sdr_gps_tpu_torch.models import rx_channel as rx
@@ -164,7 +187,19 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
         torch.cuda.reset_peak_memory_stats()
     src = ThreadedSource(ring, block=plan.adc_block, nblocks=RING_BLOCKS)
     eng = StreamEngine(params, src, device=device)
-    server = KiwiServer(eng, realtime=False, port=0)
+    parts = [part(name) for name in cfg.get("parts", [])]
+    ctx = dict(cell=cell, cfg=cfg, mix=mix, seed=seed, device=device,
+               plan=plan, engine=eng)
+    extra: dict = {}
+    for mod in parts:
+        for k, v in mod.build(ctx).items():
+            if k in extra:
+                raise SystemExit(f"two parts give the server's {k!r}")
+            extra[k] = v
+    server = KiwiServer(eng, realtime=False, port=0, **extra)
+    ctx["server"] = server
+    hooks = [functools.partial(mod.snapshot, ctx) for mod in parts
+             if hasattr(mod, "snapshot")]
     if install is not None:
         install(eng, server)
     rec: dict = dict(snd={}, wf={}, chans=[], n_sample=n_sample)
@@ -198,7 +233,9 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
                     await conn.handle_set("SET keepalive", "SND")
         alive = asyncio.create_task(keepalive())
         probes = prb.Probes(eng, server, src, rec["chans"], spans=trace)
+        probes.hooks = hooks
         rec["probes"] = probes
+        ctx.update(probes=probes, loop=asyncio.get_running_loop())
         if eng.seq != 0:
             raise SystemExit("a block ran before the listeners were tuned")
         prof = None
@@ -275,6 +312,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
         await asyncio.sleep(0.05)
 
     asyncio.run(drive())
+    ctx.update(blocks=(rec["seq0"], rec["seq1"]),
+               window=(rec["t_w0"], rec["t_w1"]))
+    part_numbers: dict = {}
+    for mod in parts:
+        part_numbers.update(mod.numbers(ctx))
+        if hasattr(mod, "close"):
+            mod.close(ctx)
     src.close()
     ring.close()
     found = forbidden_modules()
@@ -289,8 +333,13 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
     spans = list(probes.spans)
     wf_slots = {key: list(v) for key, v in probes.wf_rows.items()}
     codec_states = dict(probes.codec)
+    rec["retunes"] = list(probes.retunes)
+    rec["marks"] = {n: t.cpu().numpy() for n, t in probes.marks.items()}
+    rec["banks"] = {n: [t.cpu().numpy() for t in v]
+                    for n, v in probes.banks.items()}
     del probes, server, eng, src
     rec.pop("probes")
+    ctx.clear()
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -303,7 +352,21 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
                     codec_states, wf_slots, device, control, detail)
     out["control"] = numbers.pop("control", None)
     out["judge_s"] = time.monotonic() - t_judge
+    # a part's numbers stand as they read, the control's beside its own
+    required = [k for mod in parts for k in mod.NUMBERS]
+    if "adc_ppm" in cfg:
+        part_numbers["clock_error_ppm"] = judge.clock_error_ppm(
+            ring.true_clock, plan.adc_clock, [r[0] for r in rec["retunes"]])
+        required.append("clock_error_ppm")
+    numbers.update(part_numbers)
+    if out["control"] is not None:
+        out["control"].update(part_numbers)
     out["numbers"] = numbers
+    out["required"] = required
+    if rec["retunes"]:
+        out["timing"]["retunes"] = [
+            dict(clock=c, block_in=a, block_out=b, host_ms=(t1 - t0) * 1e3)
+            for c, a, b, t0, t1 in rec["retunes"]]
     out["peak"] = rec.get("peak", 0)
     out["window"] = (rec["t_w0"], rec["t_w1"])
     out["setup_s"] = rec["setup_s"]
@@ -395,15 +458,27 @@ def check(cfg, plan, ring, rec, lanes, snd_specs, wf_specs, snaps,
     and the passband FIR's carries as the reference works them out from
     the stream (the program's are held to them: ``carry``, ``state``)
     and from the program's state for the recurrences, which no block
-    forgets."""
+    forgets.  Each block runs under the words of the clock it ran under
+    in the program (:func:`.reference.judge.placements`)."""
     import torch
     from .reference import codec
-    nums = {"missing": 0.0, "carry": 0.0,
-            "init": judge.init_number(plan, snaps[0]["in"])}
-    ctl: dict = {}
     chans = rec["chans"]
     ref_lanes = rxr.Lanes(plan, [dict(ln, chan=c)
                                  for ln, c in zip(lanes, chans)])
+    # the clock each block ran under: the configuration's, and each
+    # clock correction's from the block that first read its words
+    phases = {n: (m, None) for n, m in rec["marks"].items()}
+    phases.update({n: (s["in"]["ddc.phi1"], s["out"].get("ddc.phi1"))
+                   for n, s in snaps.items()
+                   if n > 0 and "ddc.phi1" in s["in"]})
+    clocks, off = judge.placements(
+        ref_lanes, [r[:3] for r in rec["retunes"]], phases)
+    if rec["retunes"]:
+        off += sum(judge.bank_off(ref_lanes.at(clocks[n].of(n)), cols)
+                   for n, cols in rec["banks"].items() if n in clocks)
+    nums = {"missing": 0.0, "carry": float(off),
+            "init": judge.init_number(plan, snaps[0]["in"])}
+    ctl: dict = {}
     pkts = {i: {codec.parse_snd(p)["seq"]: codec.parse_snd(p)
                 for _t, p in sock.of(b"SND")}
             for i, sock in rec["snd"].items()}
@@ -417,10 +492,12 @@ def check(cfg, plan, ring, rec, lanes, snd_specs, wf_specs, snaps,
         x = torch.as_tensor(ring.block_of(n), device=dev)
         # the carries the reference works out from the stream itself take
         # the place of the program's; the rest of the state is followed
-        held = rxr.stream_carries(ref_lanes, ring.block_of, n, dev)
+        held = rxr.stream_carries(ref_lanes, ring.block_of, n, dev,
+                                  clocks[n])
         gap_in, carry = judge.carry_numbers(s["in"], held)
         st_in = dict(s["in"], **held)
-        taps, st_out = rxr.step(ref_lanes, st_in, x, "ref")
+        lanes_n = ref_lanes.at(clocks[n].of(n))
+        taps, st_out = rxr.step(lanes_n, st_in, x, "ref")
         gap, phase = judge.state_number(s["out"], st_out, sam)
         judge.worst(nums, {"state": max(gap, gap_in), "phase": float(phase),
                            "carry": float(carry)})
@@ -429,7 +506,7 @@ def check(cfg, plan, ring, rec, lanes, snd_specs, wf_specs, snaps,
                 detail += [("state", n, k, int(j), float(v))
                            for j, v in enumerate(g) if v > 1e-4]
         if control:
-            c_taps, c_out = rxr.step(ref_lanes, st_in, x, "tf32")
+            c_taps, c_out = rxr.step(lanes_n, st_in, x, "tf32")
             gap, phase = judge.state_number(c_out, st_out, sam)
             judge.worst(ctl, {"state": gap, "phase": float(phase)})
         for j, ln in enumerate(lanes):
@@ -451,6 +528,9 @@ def check(cfg, plan, ring, rec, lanes, snd_specs, wf_specs, snaps,
         if pkt is None:
             nums["missing"] += 1
             continue
+        # the program's W/F chains keep the nominal clock's words: the
+        # server builds WfSubsystem with it, and a clock correction
+        # retunes the receiver's channels alone
         wp = dz.wf_plan(spec["zoom"], plan.adc_clock)
         first = max(0, b_last + 1 - wfr.blocks_needed(wp, plan.adc_block))
         first -= first % wp.ingest_blocks(plan.adc_block)

@@ -12,7 +12,15 @@ replaced by wrappers that call them.  They record
 - for the correctness check: the engine's state for the listened
   channels before and after the stream's first block and a few blocks
   sampled in the window, the ADPCM encoder state before each block's
-  encode, and which block each waterfall row was made from.
+  encode, and which block each waterfall row was made from;
+- each clock correction (the engine's ``retune_all``): its clock, the
+  engine's block count when it was entered and when it returned, and
+  the listened channels' rotator words entering the first block
+  dispatched after it returned (the judge places the retune by them:
+  :func:`.reference.judge.placements`).
+
+After a sampled block's snapshots each of ``hooks`` is called with the
+block's number, on the step's thread (a part's ``snapshot``).
 """
 
 from __future__ import annotations
@@ -51,8 +59,15 @@ class Probes:
         self._fanned = 0
         self._encoded = 0
         self.targets: list[float] = []        # sample the block after each
+        self.hooks: list = []                 # hook(n) after a sample
+        # (clock, block count entered, returned, host start, end)
+        self.retunes: list[tuple[float, int, int, float, float]] = []
+        self.marks: dict[int, torch.Tensor] = {}   # block -> rotator words
+        self.banks: dict[int, list] = {}      # block -> [columns in, out]
+        self._mark_after: int | None = None
         self._lock = threading.Lock()
         self._wrap(eng, "run_block_gather", self._step)
+        self._wrap(eng, "retune_all", self._retune)
         self._wrap(server, "_encode_payloads", self._encode)
         self._wrap(server.wf, "ingest", self._wf_ingest)
         self._wrap(server.wf, "frame", self._wf_frame)
@@ -109,17 +124,50 @@ class Probes:
                 return True
         return False
 
+    def _due_mark(self, n: int) -> bool:
+        with self._lock:
+            if self._mark_after is not None and n > self._mark_after:
+                self._mark_after = None
+                return True
+        return False
+
     def _step(self, orig, idx):
         n = self.eng.seq
         sample = n == 0 or self._due_sample()
+        mark = self._due_mark(n)
         t0 = time.monotonic()
         if sample:
             self.snaps[n] = {"in": self.snapshot()}
+        elif mark:
+            self.marks[n] = self.eng.state.ddc.phi1.index_select(0, self._idx)
+        if sample or mark:
+            self.banks[n] = [self._bank()]
         out = orig(idx)
         if sample:
             self.snaps[n]["out"] = self.snapshot()
+        if sample or mark:
+            self.banks[n].append(self._bank())
         self._span("engine.run_block_gather", n, t0, time.monotonic())
+        if sample:
+            for hook in self.hooks:
+                hook(n)
         return out
+
+    # -- clock corrections ---------------------------------------------------
+    def _bank(self) -> torch.Tensor:
+        """The listened channels' stage-1 bank columns, copied on the
+        step's stream."""
+        return self.eng.tuning.bank.index_select(1, self._idx)
+
+    def _retune(self, orig, clock, *a, **k):
+        seq, t0 = self.eng.seq, time.monotonic()
+        try:
+            return orig(clock, *a, **k)
+        finally:
+            with self._lock:
+                self.retunes.append((float(clock), seq, self.eng.seq, t0,
+                                     time.monotonic()))
+                self._mark_after = self.eng.seq
 
     # -- the server ----------------------------------------------------------
     def _encode(self, orig, audio, audio2, iq_re, iq_im, chmap, keys):

@@ -27,14 +27,34 @@ faint residue beside a strong carrier.  The numbers of a run:
 - ``phase``: channels whose 48-bit rotator word after the block is not
   the reference's;
 - ``carry``: rotator words and ADC-tail samples in the program's state
-  entering a sampled block that are not what the reference works out
-  from the stream alone (the DDC's and the passband FIR's carries have
-  a finite memory: :func:`.receiver.stream_carries`); their float
-  carries' gaps count in ``state``, and the reference steps from its
-  own carries;
+  entering a sampled block (or the first block after a retune) that are
+  not what the reference works out from the stream alone (the DDC's and
+  the passband FIR's carries have a finite memory:
+  :func:`.receiver.stream_carries`); their float carries' gaps count in
+  ``state``, and the reference steps from its own carries.  In a run
+  with a clock correction it also counts the listened channels whose
+  stage-1 bank column, before and after the block, is not the one of
+  the clock the block's words were placed under (:func:`bank_off`);
 - ``init``: the largest gap between the program's state entering the
   stream's first block and where a stream starts;
 - ``missing``: sampled deliveries that never reached their listener.
+
+A clock correction (``StreamEngine.retune_all(clock)``) retunes every
+channel to the words of a new clock.  The probes record each call's
+clock and the engine's block count when it was entered and when it
+returned; the reference then runs every block under the words of the
+clock that block ran under (:func:`placements`).  Nothing of that is
+read from the program's state: the words and phases are the
+reference's own, from the recorded clocks.
+
+A configuration that states ``adc_ppm`` also gives ``clock_error_ppm``
+(:func:`clock_error_ppm`): how far the recorded clocks lie from the
+ADC's true clock.  It needs a limit in the cell's file, like a part's
+numbers.
+
+A deployment's parts (``benchmark/parts/``) add numbers of their own,
+each held to a limit of the cell like the numbers above; for those a
+missing reading or a missing limit is not correct (:func:`verdict`).
 """
 
 from __future__ import annotations
@@ -229,17 +249,116 @@ def control_wf(zoom: int, want_u8: np.ndarray, ctl_u8: np.ndarray) -> dict:
     return dict(compressed=True, payload=packed.tobytes())
 
 
-def verdict(numbers: dict, lim: dict) -> tuple[bool, list]:
-    """Each number beside its limit; correct when none is over."""
+def verdict(numbers: dict, lim: dict, required=()) -> tuple[bool, list]:
+    """Each number beside its limit; correct when none is over.  A number
+    named in ``required`` (a part's) with no reading or no limit is not
+    correct, and stands in the rows with None in place of what it
+    lacks; any other number without a reading or a limit is left out."""
     rows, ok = [], True
-    for k in sorted(lim):
+    for k in sorted(set(lim) | set(required)):
         v = numbers.get(k)
-        if v is None:
+        if k in required and (v is None or k not in lim):
+            ok = False
+            rows.append((k, None if v is None else float(v), lim.get(k)))
+            continue
+        if v is None or k not in lim:
             continue
         good = bool(np.isfinite(v) and v <= lim[k])
         ok &= good
         rows.append((k, float(v), lim[k]))
     return ok, rows
+
+
+def placements(lanes: rxr.Lanes, retunes: list, phases: dict
+               ) -> tuple[dict, int]:
+    """The clock every block up to the last compared one ran under.
+
+    ``retunes``: the engine's clock corrections in call order, each
+    (clock, a, b): the block count when the call was entered and when
+    it returned.  Blocks before ``a`` had been dispatched before the
+    call and ran under the clock before it; blocks after ``b`` were
+    dispatched after it returned and ran under its clock; the blocks a
+    to b were dispatched while it ran, and may have read either clock's
+    words (the program orders the tuning's copy against a step in
+    flight on the card's stream, which the host cannot see).  So a
+    retune first takes effect at some block s in [a, b + 1], and every
+    block from s on reads its words, on every lane.
+
+    ``phases``: {block n: (the program's rotator words of the listened
+    lanes entering n, after n or None)}, at each sampled block and at
+    the first block dispatched after each retune returned.  At each of
+    them, in order, the placements the record allows are held to those
+    words, and the ones under which the fewest lanes are off are kept:
+    a block that read neither clock's words, or the old words on some
+    lanes and the new on others, leaves lanes off under every
+    placement.  The words compared are the reference's own, from the
+    recorded clocks, never the program's.
+
+    Returns ({n: the kept placement's :class:`.receiver.Clocks`}, the
+    lanes off at the blocks after a retune that no sampled block
+    compares)."""
+    kept: list[tuple] = [()]
+    taken = off = 0
+    chosen = {}
+
+    def clocks(h):
+        return rxr.Clocks(lanes.clock, [(s, retunes[r][0])
+                                        for r, s in enumerate(h)])
+
+    def lanes_off(h, n, before, after):
+        cl = clocks(h)
+        bad = int(np.sum(rxr.phase_entering(lanes, cl, n)
+                         != np.asarray(before, np.int64)))
+        if after is not None:
+            bad += int(np.sum(rxr.phase_entering(lanes, cl, n + 1)
+                              != np.asarray(after, np.int64)))
+        return bad
+
+    for n in sorted(phases):
+        while taken < len(retunes) and retunes[taken][1] <= n:
+            _clock, a, b = retunes[taken]
+            kept = [h + (s,) for h in kept
+                    for s in range(max([a] + list(h[-1:])), b + 2)]
+            taken += 1
+        before, after = phases[n]
+        scores = [lanes_off(h, n, before, after) for h in kept]
+        best = min(scores)
+        kept = [h for h, v in zip(kept, scores) if v == best]
+        chosen[n] = clocks(kept[0])
+        if after is None:
+            off += best
+    return chosen, off
+
+
+# A bank column more than this share of its largest tap away from the
+# reference's, under the clock placed for its block, counts in ``carry``.
+# The program builds its bank in float64 on the host and keeps it in
+# complex64: 4.1e-8 - 5.1e-8 off the reference's (three lanes, 0.5 - 14.2
+# MHz); under the other clock of a 0.4 ppm correction the same lanes read
+# 1.0e-5 - 2.9e-4 (benchmark/tests/test_bench_retune.py).
+BANK_GAP = 1e-6
+
+
+def bank_off(lanes: rxr.Lanes, cols: list) -> int:
+    """The lanes whose stage-1 bank column is more than ``BANK_GAP`` off
+    the reference's of ``lanes``' clock in every one of ``cols`` (the
+    listened columns, (L1, lanes), as the probes copied them before the
+    step and after it: the step read one of them)."""
+    want = lanes.bank
+    scale = np.abs(want).max(axis=0)
+    good = np.zeros(want.shape[1], bool)
+    for col in cols:
+        gap = np.abs(np.asarray(col, np.complex128) - want).max(axis=0)
+        good |= gap <= BANK_GAP * scale
+    return int(np.sum(~good))
+
+
+def clock_error_ppm(true_clock: float, nominal: float, clocks) -> float:
+    """The worst offset, in ppm of the ADC's true clock, of the clocks
+    the engine was retuned to (``clocks``; the nominal one when there
+    were none): what a clock correction has to bring near zero."""
+    return max(abs(c / true_clock - 1.0) * 1e6
+               for c in (list(clocks) or [nominal]))
 
 
 WORST_OF = ("audio", "adpcm", "state")

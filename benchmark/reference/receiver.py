@@ -16,6 +16,8 @@ channel: a step follows the program from its own state entering a block
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from scipy import signal as sp_signal
@@ -76,16 +78,17 @@ def _cplx_mm(frames: torch.Tensor, taps: torch.Tensor, prec: str):
 
 class Lanes:
     """The channels a run listens to, as the tuning the listeners' SET
-    commands ask for: frequency, mode, passband, the NR switches."""
+    commands ask for: frequency, mode, passband, the NR switches.  The
+    tuning words (and the stage-1 bank they mix by) are those of
+    ``clock``, the nominal ADC clock unless a clock correction retuned
+    the engine (:meth:`at`)."""
 
-    def __init__(self, p: dz.Plan, lanes: list[dict]):
+    def __init__(self, p: dz.Plan, lanes: list[dict],
+                 clock: float | None = None):
         self.p = p
+        self.freqs = [ln["freq_hz"] for ln in lanes]
         self.mode_id = np.array([dz.MODES.get(ln["mode"], dz.MODES["usb"])
                                  for ln in lanes])
-        words = [dz.fcw(ln["freq_hz"], p.adc_clock) for ln in lanes]
-        self.dphi = np.array([(w * p.d1) & dz.MASK48 for w in words],
-                             np.int64)
-        self.bank = np.stack([dz.bank_column(p, w) for w in words], -1)
         self.coef = np.stack([dz.passband_coef(p, *ln["passband"])
                               for ln in lanes], -1)
         self.notch = np.array([ln.get("nr_notch", False) for ln in lanes])
@@ -96,6 +99,71 @@ class Lanes:
                 (self.mode_id == dz.MODES["nbfm"]).any():
             raise NotImplementedError("the reference has no SAM sideband "
                                       "or NBFM lane")
+        self._tune(p.adc_clock if clock is None else float(clock))
+        self._at = {self.clock: self}
+
+    def _tune(self, clock: float) -> None:
+        self.clock = clock
+        words = [dz.fcw(f, clock) for f in self.freqs]
+        self.dphi = np.array([(w * self.p.d1) & dz.MASK48 for w in words],
+                             np.int64)
+        self.bank = np.stack([dz.bank_column(self.p, w) for w in words], -1)
+
+    def at(self, clock: float) -> "Lanes":
+        """The same lanes under the tuning words of ``clock``: what a
+        clock correction's retune changes (the decimation plan, the
+        passbands and the switches stay)."""
+        got = self._at.get(clock)
+        if got is None:
+            got = copy.copy(self)           # shares ``_at``
+            got._tune(clock)
+            self._at[clock] = got
+        return got
+
+
+class Clocks:
+    """The clock whose tuning words each block of the stream ran under:
+    ``nominal`` until the first switch, then each switch's clock from
+    its first block on.  ``switches``: (first block, clock), in the order
+    of their first blocks."""
+
+    def __init__(self, nominal: float, switches=()):
+        self.nominal = nominal
+        self.switches = list(switches)
+
+    def of(self, n: int) -> float:
+        """The clock of block ``n``."""
+        clock = self.nominal
+        for first, c in self.switches:
+            if first > n:
+                break
+            clock = c
+        return clock
+
+    def runs(self, n: int) -> list[tuple[int, float]]:
+        """(blocks, clock) of blocks 0 to n - 1, in order."""
+        out, start, clock = [], 0, self.nominal
+        for first, c in self.switches:
+            if first >= n:
+                break
+            if first > start:
+                out.append((first - start, clock))
+                start = first
+            clock = c
+        if n > start:
+            out.append((n - start, clock))
+        return out
+
+
+def phase_entering(lanes: Lanes, clocks: Clocks, n: int) -> np.ndarray:
+    """Each lane's 48-bit rotator word entering block ``n``: the sum,
+    over the blocks before it, of each block's own ``k1 * dphi``, modulo
+    2**48 (exact Python integers)."""
+    acc = [0] * len(lanes.dphi)
+    for count, clock in clocks.runs(n):
+        step = [count * lanes.p.k1 * int(d) for d in lanes.at(clock).dphi]
+        acc = [(a + s) & dz.MASK48 for a, s in zip(acc, step)]
+    return np.array(acc, np.int64)
 
 
 def init_state(p: dz.Plan, n: int) -> dict:
@@ -161,6 +229,14 @@ def ddc(lanes: Lanes, st: dict, x: torch.Tensor, prec: str
     y_tail = torch.as_tensor(st["ddc.y_tail"], device=dev).to(y.dtype)
     y_ext = torch.cat([y_tail, y])
     phi1 = st["ddc.phi1"].astype(np.int64)
+    # The carry rows were made in the block before and are rotated here,
+    # back from phi1, by THIS block's word.  So after a retune the first
+    # stage-2 span reads them under the new word, not under the word
+    # they were made with, which the plain arithmetic would use.  The
+    # program's fused stage 2 does the same (models/rx_channel.py,
+    # ``_ddc``'s "fused" branch, as the JAX package's fused path does),
+    # and this reference models it: benchmark/tests/test_bench_retune.py
+    # shows the two differ in that span alone.
     phi0 = [(int(a) - p.tail2 * int(d)) & dz.MASK48
             for a, d in zip(phi1, lanes.dphi)]
     yr = y_ext * rotator(ramp_words(np.array(phi0, np.int64), lanes.dphi,
@@ -180,26 +256,30 @@ def ddc(lanes: Lanes, st: dict, x: torch.Tensor, prec: str
     return out.cpu().numpy().astype(_ct(prec)), new
 
 
-def stream_carries(lanes: Lanes, block_of, n: int, device) -> dict:
+def stream_carries(lanes: Lanes, block_of, n: int, device,
+                   clocks: Clocks | None = None) -> dict:
     """The carries entering block ``n`` that the stream alone fixes: the
-    ADC tail, the stage-1 carry, the rotator words (``n`` blocks of
-    ``k1`` increments from zero) and the passband FIR's input tail.
-    Their memory is finite, so the DDC run over the few blocks before
-    ``n`` from where a stream starts gives them exactly (float64), with
-    nothing of the program.  ``block_of(m)``: the samples of block m."""
+    ADC tail, the stage-1 carry, the rotator words (each block before
+    ``n`` advancing them by its own ``k1`` increments from zero:
+    :func:`phase_entering`) and the passband FIR's input tail.  Their
+    memory is finite, so the DDC run over the few blocks before ``n``
+    from where a stream starts, each block under its own clock's words
+    (``clocks``; by default ``lanes``' clock throughout), gives them
+    exactly (float64), with nothing of the program.  ``block_of(m)``:
+    the samples of block m."""
     p = lanes.p
+    clocks = clocks or Clocks(lanes.clock)
     fir_blocks = -(-(p.ntaps - 1) // p.hop)
     m0 = max(0, n - fir_blocks - 1)
     st = init_state(p, len(lanes.dphi))
     if m0 > 0:
         st["ddc.x_tail"] = np.asarray(block_of(m0 - 1)[-p.tail1:],
                                       np.float64)
-    st["ddc.phi1"] = np.array([(m0 * p.k1 * int(d)) & dz.MASK48
-                               for d in lanes.dphi], np.int64)
+    st["ddc.phi1"] = phase_entering(lanes, clocks, m0)
     fir = st["fir_tail"]
     for m in range(m0, n):
         x = torch.as_tensor(block_of(m), device=device)
-        iq, new = ddc(lanes, st, x, "ref")
+        iq, new = ddc(lanes.at(clocks.of(m)), st, x, "ref")
         st.update(new)
         fir = np.concatenate([fir, iq])[p.hop:]
     return {"ddc.x_tail": st["ddc.x_tail"], "ddc.y_tail": st["ddc.y_tail"],

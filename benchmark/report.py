@@ -27,7 +27,8 @@ def per_layer(cell, out: dict) -> dict:
 
 def result_line(cell, out: dict, trace: bool, power: str) -> dict:
     import torch
-    ok, rows = judge.verdict(out["numbers"], judge.limits(cell.name))
+    ok, rows = judge.verdict(out["numbers"], judge.limits(cell.name),
+                             out.get("required", ()))
     if trace:
         metrics = per_layer(cell, out)
     else:
@@ -54,7 +55,8 @@ def result_line(cell, out: dict, trace: bool, power: str) -> dict:
     return line
 
 
-def finite(v: float) -> float:
+def finite(v: float | None) -> float | None:
     """A number JSON can carry: an infinite reading (a field of another
-    shape, a block that never came) is written as 1e308."""
-    return v if math.isfinite(v) else 1e308
+    shape, a block that never came) is written as 1e308; a part's number
+    that was not read stays None."""
+    return v if v is None or math.isfinite(v) else 1e308
