@@ -2,8 +2,12 @@
 
 The port's copy of :mod:`flydog_sdr_gps_tpu.models.gps.galileo`: the
 host code (Viterbi, interleaver, CRC-24Q, the I/NAV word codec,
-``InavAssembler``) is the reference's, line for line; the E1B cold
-search (:func:`acquire_all_e1b`) runs on the port's acquisition.
+``InavAssembler``) is the reference's, line for line, but for the
+Viterbi decoder's inner loop, which steps every state at once with the
+reference's result (the loop over states, a page part at a time, held
+the interpreter long enough with several Galileo satellites tracked to
+stall a server's block loop); the E1B cold search
+(:func:`acquire_all_e1b`) runs on the port's acquisition.
 
 Reference: E1B memory codes downloaded to the FPGA (`CmdSetE1Bcode`,
 `gps/e1bcode.h` data), acquisition shares the C/A search with a
@@ -84,43 +88,38 @@ def viterbi_decode_k7(soft: np.ndarray, tail: bool = True) -> np.ndarray:
 
     soft: (2n,) values, positive = coded bit 1.  Returns n decoded
     bits (including the K-1 tail if ``tail``).
+
+    The reference's decoder, one step of every state at a time: next
+    state ``ns`` has the two predecessors ``ns >> 1`` and ``(ns >> 1) |
+    32``, both on input ``ns & 1``; the reference visits them in that
+    order and keeps the first of two equal metrics, and leaves a state
+    that no reachable state enters at its initial values, as here.  The
+    branch metrics are the same sums in the same order, so the bits are
+    the reference's, ties included.
     """
     soft = np.asarray(soft, np.float64)
     n = len(soft) // 2
     nstates = 64
-    # branch tables: for state s and input b, next state and outputs
-    nxt = np.zeros((nstates, 2), np.int64)
-    outs = np.zeros((nstates, 2, 2), np.int8)
-    for s in range(nstates):
-        for b in (0, 1):
-            reg = ((s << 1) | b) & 0x7F
-            nxt[s, b] = reg & 0x3F
-            outs[s, b, 0] = bin(reg & int(G1_OCT)).count("1") & 1
-            outs[s, b, 1] = bin(reg & int(G2_OCT)).count("1") & 1
+    ns = np.arange(nstates)
+    b = ns & 1
+    preds = np.stack([ns >> 1, (ns >> 1) | 32])           # (2, 64)
+    reg = (preds << 1) | b                                 # 7-bit register
+    sign0 = np.where(_parity(reg & int(G1_OCT)), 1.0, -1.0)
+    sign1 = np.where(_parity(reg & int(G2_OCT)), 1.0, -1.0)
     metric = np.full(nstates, -1e18)
     metric[0] = 0.0
     back = np.zeros((n, nstates), np.int8)
     prev_state = np.zeros((n, nstates), np.int64)
     for t in range(n):
-        s0, s1 = soft[2 * t], soft[2 * t + 1]
-        new = np.full(nstates, -1e18)
-        nb = np.zeros(nstates, np.int8)
-        ps = np.zeros(nstates, np.int64)
-        for s in range(nstates):
-            if metric[s] <= -1e17:
-                continue
-            for b in (0, 1):
-                ns = nxt[s, b]
-                bm = ((s0 if outs[s, b, 0] else -s0)
-                      + (s1 if outs[s, b, 1] else -s1))
-                m = metric[s] + bm
-                if m > new[ns]:
-                    new[ns] = m
-                    nb[ns] = b
-                    ps[ns] = s
-        metric = new
-        back[t] = nb
-        prev_state[t] = ps
+        m_in = metric[preds]                               # (2, 64)
+        live = m_in > -1e17
+        m = m_in + (sign0 * soft[2 * t] + sign1 * soft[2 * t + 1])
+        second = live[1] & (~live[0] | (m[1] > m[0]))
+        any_live = live[0] | live[1]
+        metric = np.where(second, m[1], np.where(live[0], m[0], -1e18))
+        back[t] = np.where(any_live, b, 0)
+        prev_state[t] = np.where(second, preds[1],
+                                 np.where(live[0], preds[0], 0))
     # traceback from state 0 when tail-terminated, else best state
     s = 0 if tail else int(np.argmax(metric))
     bits = np.zeros(n, np.uint8)
@@ -128,6 +127,13 @@ def viterbi_decode_k7(soft: np.ndarray, tail: bool = True) -> np.ndarray:
         bits[t] = back[t, s]
         s = int(prev_state[t, s])
     return bits
+
+
+def _parity(x: np.ndarray) -> np.ndarray:
+    """Each element's bit parity (x < 2**8)."""
+    x = x ^ (x >> 4)
+    x = x ^ (x >> 2)
+    return (x ^ (x >> 1)) & 1
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,7 @@ class GpsManager:
         # periodic background search (SearchTask cadence); 0 disables
         self.search_interval_s = 2.0
         self._last_search = 0
+        self.searches = 0               # cold searches run by process()
         self._sbuf = np.zeros(0, np.float32)  # rolling search capture
         self._gal_deferred = False    # E1B search waiting for 2 windows
 
@@ -608,6 +609,7 @@ class GpsManager:
                 self._sbuf,
                 advance_samples=len(self._sbuf) - len(self._rem))
             self._last_search = self.samples_tracked
+            self.searches += 1
 
     def _search_due(self) -> bool:
         if len(self.channels) >= self.max_chans:

@@ -153,6 +153,45 @@ def build_filterbank_column(plan: DDCPlan, fcw: int
     return bank[:, 0], int(dphi[0])
 
 
+@functools.lru_cache(maxsize=8)
+def _bank_consts(plan: DDCPlan, device: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``2 * h1`` (float64) and the tap numbers ``n`` (int64), each an
+    (L1, 1) column on ``device``, made once per (plan, device)."""
+    return (torch.as_tensor(2.0 * np.asarray(plan.h1, np.float64),
+                            device=device)[:, None],
+            torch.arange(plan.l1, dtype=torch.int64, device=device)[:, None])
+
+
+def build_filterbank_device(plan: DDCPlan, fcws, device: torch.device | str
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`build_filterbank` on ``device``, in torch: ``(bank, dphi1)``
+    there, complex64 (L1, C) and int64 (C,).
+
+    ``fcws``: the words (ints or an int64 array, each below 2**63; taken
+    mod 2**48).  The same arithmetic as the host's: the phase words
+    ``n * fcw mod 2**48`` exact in int64 (n < L1 <= 2**15 and fcw < 2**48
+    keep the product under 2**63), the angle and ``2 * h1 * cos / sin``
+    in float64, each plane rounded to float32; ``dphi1 = fcw * d1 mod
+    2**48``, exact.  Entries equal the host's where the two float64
+    cos/sin agree, and lie within one float32 ulp of them elsewhere.
+    Runs on the current stream; a full retune at 4096 channels is a
+    few hundred MB of temporaries.
+    """
+    if plan.l1 > 1 << 15 or plan.d1 > 1 << 15:
+        raise ValueError(f"L1 {plan.l1} / d1 {plan.d1}: n * fcw could pass "
+                         "2**63")
+    device = torch.device(device)
+    words = torch.as_tensor(np.asarray(fcws, np.int64),
+                            device=device) & nco.MASK48
+    two_h1, n = _bank_consts(plan, device)
+    ang = ((n * words) & nco.MASK48).double()
+    ang.mul_(-2.0 * np.pi).mul_(2.0 ** -PHASE_BITS)
+    bank = torch.complex(torch.cos(ang).mul_(two_h1).float(),
+                         torch.sin(ang).mul_(two_h1).float())
+    return bank, (words * plan.d1) & nco.MASK48
+
+
 # ---------------------------------------------------------------------------
 # streaming state
 # ---------------------------------------------------------------------------

@@ -33,6 +33,15 @@ def freq_to_fcw(freq_hz: float, adc_clock_hz: float) -> int:
     return fcw % (1 << PHASE_BITS)
 
 
+def freqs_to_fcws(freqs_hz, adc_clock_hz: float) -> np.ndarray:
+    """:func:`freq_to_fcw` of each frequency, as an int64 array: the same
+    float64 quotient and product and the same round-half-even, so each
+    word equals the scalar function's."""
+    q = np.asarray(freqs_hz, np.float64) / adc_clock_hz * float(
+        1 << PHASE_BITS)
+    return np.mod(np.rint(q).astype(np.int64), 1 << PHASE_BITS)
+
+
 def fcw_to_freq(fcw: int, adc_clock_hz: float) -> float:
     """Inverse of :func:`freq_to_fcw` (principal value in [-fs/2, fs/2))."""
     fcw = fcw % (1 << PHASE_BITS)

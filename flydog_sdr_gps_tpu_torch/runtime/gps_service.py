@@ -19,6 +19,15 @@ device, in an executor so the event loop stays live), solutions run on
 a fixed IF-time cadence, and clock corrections call back into the
 `StreamEngine` on the event-loop thread (serializing control-plane
 mutations with the websocket SET handlers).
+
+Spans (the tracer's), numbered by the chunk's index (``chunks`` before
+it was counted): ``gps.chunk``, one chunk's ``mgr.process`` (detail
+``"search"`` when a search ran in it); ``gps.solve``, one solve after
+it; ``gps.correction``, :meth:`GpsReceiver._apply_clock` after a fix,
+with its outcome as detail: ``"applied"`` (the engine retuned),
+``"gated"`` (the recent estimates spread too far), ``"small"`` (under
+``min_clock_change_ppm`` from the clock in use) or ``"unlocked"`` (the
+clock discipline is not locked yet).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import time
 import torch
 
 from ..utils.log import lprintf
+from ..utils.trace import get_trace
 
 
 class GpsReceiver:
@@ -52,6 +62,7 @@ class GpsReceiver:
         self.realtime = realtime
         self.retunes = 0
         self.errors = 0                 # chunks that raised (logged)
+        self.chunks = 0                 # chunks processed
         self.adc_clock_corrected = manager.adc_clock_nom
         self._next_solve = solve_interval
         self._next_search = 0.0
@@ -84,27 +95,28 @@ class GpsReceiver:
                       and len(self.mgr.channels) < self.mgr.max_chans)
             if search:
                 self._next_search = t_if + self.search_interval
+            k = self.chunks
             try:
                 raw = await loop.run_in_executor(
                     None, self._on_stream, self.source.next_block,
                     self.chunk)
                 await loop.run_in_executor(
-                    None, self._on_stream, self.mgr.process, raw, search)
+                    None, self._on_stream, self._process, raw, search, k)
             except Exception as e:      # noqa: BLE001 — keep serving
                 self.errors += 1
                 lprintf("gps service error: %s", e)
                 await asyncio.sleep(0.5)
                 continue
+            self.chunks += 1
             if search:
                 lprintf("GPS search: tracking %s",
                         sorted(self.mgr.channels))
             t_if = self.mgr.ticks / self.mgr.tp.fs
             if t_if >= self._next_solve:
                 self._next_solve = t_if + self.solve_interval
-                fix = await loop.run_in_executor(
-                    None, self.mgr.solve, self.assist)
+                fix = await loop.run_in_executor(None, self._solve, k)
                 if fix is not None:
-                    self._apply_clock()
+                    self._apply_clock(k)
             if self.realtime:
                 next_t += period
                 delay = next_t - time.monotonic()
@@ -115,11 +127,32 @@ class GpsReceiver:
             else:
                 await asyncio.sleep(0)
 
-    def _apply_clock(self) -> None:
+    def _process(self, raw, search: bool, k: int) -> None:
+        """``mgr.process`` of chunk ``k`` (span ``gps.chunk``)."""
+        t0, searches = time.monotonic_ns(), self.mgr.searches
+        self.mgr.process(raw, search)
+        get_trace().span("gps.chunk", k, t0, detail=(
+            "search" if self.mgr.searches != searches else None))
+
+    def _solve(self, k: int):
+        """One solve after chunk ``k`` (span ``gps.solve``)."""
+        t0 = time.monotonic_ns()
+        try:
+            return self.mgr.solve(self.assist)
+        finally:
+            get_trace().span("gps.solve", k, t0)
+
+    def _apply_clock(self, chunk: int = -1) -> None:
         """Clock-discipline feedback on the event-loop thread (no race
-        with SET-command tuning edits)."""
+        with SET-command tuning edits); span ``gps.correction`` of
+        ``chunk``, its outcome as detail."""
+        t0 = time.monotonic_ns()
+        outcome = self._correct_clock()
+        get_trace().span("gps.correction", chunk, t0, detail=outcome)
+
+    def _correct_clock(self) -> str:
         if not self.mgr.clock.locked:
-            return
+            return "unlocked"
         clk = self.mgr.adc_clock()
         # stability gate (the reference's MMA + outlier window serves
         # the same purpose, `init/clk.cpp:205-263`): only retune on a
@@ -131,10 +164,10 @@ class GpsReceiver:
             spread_ppm = ((max(self._clk_hist) - min(self._clk_hist))
                           / clk * 1e6)
             if spread_ppm > 0.05:
-                return
+                return "gated"
         dppm = abs(clk - self.adc_clock_corrected) / clk * 1e6
         if dppm < self.min_change:
-            return
+            return "small"
         self.adc_clock_corrected = clk
         if self.engine is not None:
             self.engine.retune_all(clk)
@@ -143,6 +176,7 @@ class GpsReceiver:
                     "retuned %d channels", clk,
                     (clk / self.mgr.adc_clock_nom - 1) * 1e6,
                     self.engine.params.num_channels)
+        return "applied"
 
     def stop(self) -> None:
         self._stop.set()

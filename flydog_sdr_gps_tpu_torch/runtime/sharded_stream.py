@@ -82,14 +82,9 @@ class ShardedStreamEngine(StreamEngine):
             value = parallel.shard_rx_state(value, self.mesh, self.params)
         self._program.load_state(value)
 
-    @property
-    def tuning(self) -> rx.RxTuning:
-        """The whole tuning; setting it re-shards it over the mesh, into
-        the program's shard buffers, with each shard's gates."""
-        return self._tuning
-
-    @tuning.setter
-    def tuning(self, value: rx.RxTuning) -> None:
+    def _put_tuning(self, value: rx.RxTuning) -> None:
+        """The whole tuning (``tuning``) is ``value``, re-sharded over the
+        mesh into the program's shard buffers, with each shard's gates."""
         self._tuning = value
         self._program.load_tuning(parallel.shard_rx_tuning(value, self.mesh))
 

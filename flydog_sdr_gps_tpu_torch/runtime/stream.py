@@ -20,12 +20,24 @@ graph replayed over buffers the step owns.  The engine's ``state`` and
 ``tuning`` are those buffers; assigning either copies into them.  A
 block's taps and packed result are buffers too, overwritten by the next
 block.
+
+The control plane (a SET, a GPS clock correction) changes the tuning from
+another thread than the step's.  Each change reaches the step in one
+ordered piece: the step's thread holds the engine's dispatch lock while
+it enqueues a block, and a change is enqueued under the same lock, on the
+stream the blocks are enqueued on (:meth:`StreamEngine._hand_over`), so a
+block enqueued before it reads the old tuning whole and one enqueued
+after it the new.  What a change computes (a retune's bank) is made
+before the lock, on the card on a stream of its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import pickle
+import threading
 import time
 from typing import Callable
 
@@ -74,6 +86,15 @@ class StreamEngine:
         self.params = params
         self.source = source
         self.device = torch.device(device)
+        # held while a block is enqueued, and while a control-plane change
+        # is (_hand_over); on a card the blocks are enqueued on the stream
+        # current here, and what a change builds is built on a stream of
+        # its own
+        self._dispatch = threading.Lock()
+        card = self.device.type == "cuda"
+        self._step_stream = (torch.cuda.current_stream(self.device)
+                             if card else None)
+        self._tune_stream = torch.cuda.Stream(self.device) if card else None
         if use_graphs is None:
             use_graphs = self.device.type == "cuda"
         # the compiled step owns the state and tuning buffers; None: the
@@ -103,6 +124,13 @@ class StreamEngine:
                         pin_memory=self.device.type == "cuda")
             for _ in range(2)]
         self._fetch_turn = 0
+        if card:
+            # a retune's path made ready here, off the block loop: its
+            # kernels' first loads and its memory on the tuning stream
+            self._on_tune_stream(lambda: chz.build_filterbank_device(
+                params.ddc, np.zeros(params.num_channels, np.int64),
+                self.device))
+            self._tune_stream.synchronize()
 
     @property
     def compiled(self) -> rx.CompiledRxBlock | None:
@@ -129,19 +157,71 @@ class StreamEngine:
 
     @tuning.setter
     def tuning(self, value: rx.RxTuning) -> None:
+        """Handed to the step whole (:meth:`_hand_over`), after what the
+        caller's stream has queued (``value`` was made there)."""
+        self._hand_over(functools.partial(self._put_tuning, value))
+
+    def _put_tuning(self, value: rx.RxTuning) -> None:
+        """Make ``value`` the step's tuning (under the dispatch lock)."""
         if self._compiled is None:
             self._tuning = value
             return
         step = self._compiled
         rx.copy_into(step.tuning, value)
-        # the same buffers under the new gates (one reference swap, so a
-        # block in flight on another thread reads one gate tuple whole)
+        # the same buffers under the new gates
         step.tuning = dataclasses.replace(
             step.tuning, **{f: getattr(value, f) for f in rx.GATE_FIELDS})
 
+    def _on_tune_stream(self, build: Callable[[], object]):
+        """``build()``, and an event after it: on a card run on the
+        engine's tuning stream, off the step's, so that the step keeps
+        its stream while a retune's bank is made; on the CPU run here
+        (the event is None)."""
+        if self._tune_stream is None:
+            return build(), None
+        with torch.cuda.stream(self._tune_stream):
+            out = build()
+            ready = torch.cuda.Event()
+            ready.record(self._tune_stream)
+        return out, ready
+
+    def _hand_over(self, apply: Callable[[], None], ready=None,
+                   made: tuple = (), span: str | None = None,
+                   block: int = -1, detail=None) -> None:
+        """Enqueue ``apply()`` (the copies of a control-plane change into
+        the step's tuning, or its rebinding) under the dispatch lock, on
+        the stream the blocks are enqueued on, after the event ``ready``
+        (the change's build; None: after what the caller's stream has
+        queued).  A block enqueued before reads the old tuning whole, one
+        after the new.  ``made``: tensors of the build that ``apply``
+        reads, kept from reuse until the step's stream is past them.  The
+        lock is held for the enqueue alone; ``span`` names its span."""
+        step = self._step_stream
+        caller = (torch.cuda.current_stream(self.device) if step is not None
+                  else None)
+        with self._dispatch:
+            t0 = time.monotonic_ns()
+            if step is None:
+                apply()
+            else:
+                with torch.cuda.stream(step):
+                    if ready is not None:
+                        step.wait_event(ready)
+                    elif caller != step:
+                        step.wait_stream(caller)
+                    for t in made:
+                        t.record_stream(step)
+                    apply()
+            if span is not None:
+                get_trace().span(span, block, t0, detail=detail)
+
     # -- control plane ---------------------------------------------------
     def set_channel(self, ch: int, **kwargs) -> None:
-        """Apply "SET"-style changes (freq/mode/passband/agc/...)."""
+        """Apply "SET"-style changes (freq/mode/passband/agc/...).  The
+        channel's column of each changed tuning field (its bank column
+        and word on a retune) reaches the step in one piece, as
+        :meth:`retune_all`'s bank does (span ``engine.retune_apply``,
+        detail ``"set_channel"``); the gates follow in a second piece."""
         ctl = self.ctl[ch]
         retune = False
         recoef = False
@@ -152,40 +232,64 @@ class StreamEngine:
                 setattr(ctl, k, v)
                 retune |= k == "freq_hz"
                 recoef |= k in ("mode", "passband")
-        t = self.tuning                 # updated in place
+        cols: dict[str, object] = {}        # field -> channel ch's value
         if retune:
             fcw = nco.freq_to_fcw(ctl.freq_hz, self.params.adc_clock)
-            col, dp = chz.build_filterbank_column(self.params.ddc, fcw)
-            t.bank[:, ch] = torch.as_tensor(col, device=self.device)
-            t.dphi1[ch] = dp
+            cols["bank"], cols["dphi1"] = chz.build_filterbank_column(
+                self.params.ddc, fcw)
         if recoef:
             pb = ctl.passband or rx._default_passband(ctl.mode)
-            coef = fastfir.passband_freq_coef(
+            cols["pb_coef"] = fastfir.passband_freq_coef(
                 self.params.fs_out, pb[0], pb[1], plan=self.params.fir)
-            t.pb_coef[:, ch] = torch.as_tensor(coef, device=self.device)
-            t.mode[ch] = ctl.mode
+            cols["mode"] = ctl.mode
         # scalar per-channel knobs
-        t.manual_gain_db[ch] = np.nan if ctl.agc_on else ctl.manual_gain_db
-        t.squelch_thresh[ch] = ctl.squelch
-        t.nb_on[ch] = ctl.nb_on
-        t.nb_wild[ch] = ctl.nb_wild
-        t.deemph_on[ch] = ctl.deemph_on
-        t.mute_over_dbm[ch] = ctl.mute_over_dbm
-        t.nr_on[ch] = ctl.nr_on
-        t.nr_notch_on[ch] = ctl.nr_notch_on
-        t.nr_den_on[ch] = ctl.nr_den_on
-        self.tuning = rx.with_gates(t)
+        cols.update(
+            manual_gain_db=np.nan if ctl.agc_on else ctl.manual_gain_db,
+            squelch_thresh=ctl.squelch, nb_on=ctl.nb_on,
+            nb_wild=ctl.nb_wild, deemph_on=ctl.deemph_on,
+            mute_over_dbm=ctl.mute_over_dbm, nr_on=ctl.nr_on,
+            nr_notch_on=ctl.nr_notch_on, nr_den_on=ctl.nr_den_on)
+        t = self.tuning                 # updated in place
+        staged, ready = self._on_tune_stream(lambda: {
+            f: torch.as_tensor(np.asarray(v), dtype=getattr(t, f).dtype,
+                               device=self.device) for f, v in cols.items()})
+
+        def apply():
+            for f, v in staged.items():
+                getattr(t, f)[..., ch].copy_(v)
+        self._hand_over(apply, ready, tuple(staged.values()),
+                        "engine.retune_apply", self.seq, "set_channel")
+        # the gates read back after the writes, on the blocks' stream
+        with (torch.cuda.stream(self._step_stream)
+              if self._step_stream is not None
+              else contextlib.nullcontext()):
+            gated = rx.with_gates(t)
+        self.tuning = gated
 
     def retune_all(self, adc_clock_corrected: float) -> None:
         """Clock-discipline feedback: rebuild every NCO against the
         corrected ADC clock (`rx/rx_sound.cpp:334-344`).  Only the tuning
-        words change; the decimation plan stays at nominal."""
-        fcws = [nco.freq_to_fcw(c.freq_hz, adc_clock_corrected)
-                for c in self.ctl]
-        bank, dphi = chz.build_filterbank(self.params.ddc, fcws)
-        self.tuning = dataclasses.replace(
-            self.tuning, bank=torch.as_tensor(bank, device=self.device),
-            dphi1=torch.as_tensor(dphi, device=self.device))
+        words change; the decimation plan stays at nominal.
+
+        The words are made on the host, the stage-1 bank from them on the
+        engine's device (:func:`..ops.channelizer.build_filterbank_device`,
+        on a card on the engine's tuning stream), and the new ``(bank,
+        dphi1)`` reach the step in one piece (:meth:`_hand_over`): when
+        this returns, every block enqueued later reads them and every
+        block enqueued before read the old pair.  Spans: ``engine.retune``
+        (this call on the caller's thread) and ``engine.retune_apply``
+        (the enqueue under the lock), numbered by ``seq`` at entry."""
+        seq, t0 = self.seq, time.monotonic_ns()
+        fcws = nco.freqs_to_fcws([c.freq_hz for c in self.ctl],
+                                 adc_clock_corrected)
+        (bank, dphi), ready = self._on_tune_stream(
+            lambda: chz.build_filterbank_device(self.params.ddc, fcws,
+                                                self.device))
+        self._hand_over(
+            lambda: self._put_tuning(dataclasses.replace(
+                self.tuning, bank=bank, dphi1=dphi)),
+            ready, (bank, dphi), "engine.retune_apply", seq)
+        get_trace().span("engine.retune", seq, t0)
 
     # -- data plane ------------------------------------------------------
     def _next_x(self) -> tuple[int, torch.Tensor]:
@@ -221,13 +325,14 @@ class StreamEngine:
     def _advance(self) -> tuple[torch.Tensor, rx.RxTaps]:
         """One source block through the block program."""
         ticks, x = self._next_x()
-        if self._compiled is None:
-            self.state, taps = rx.rx_block(self.params, self.state,
-                                           self.tuning, x)
-        else:
-            taps = self._compiled.block(x)
-        self.block_ticks = ticks
-        self.seq += 1
+        with self._dispatch:
+            if self._compiled is None:
+                self.state, taps = rx.rx_block(self.params, self.state,
+                                               self.tuning, x)
+            else:
+                taps = self._compiled.block(x)
+            self.block_ticks = ticks
+            self.seq += 1
         return x, taps
 
     def run_block(self) -> rx.RxTaps:
@@ -263,9 +368,12 @@ class StreamEngine:
             x, taps = self._advance()
             return pack_columns(taps, x, idx)
         ticks, x = self._next_x()
-        packed = self._gstep_for(len(idx))(x, idx)
-        self.block_ticks = ticks
-        self.seq += 1
+        prog = self._gstep_for(len(idx))
+        prog.select(idx)
+        with self._dispatch:
+            packed = prog(x)
+            self.block_ticks = ticks
+            self.seq += 1
         return packed
 
     def _gstep_for(self, bucket: int) -> "ServeProgram":
@@ -467,15 +575,18 @@ class ServeProgram:
         s = self.step
         self.body(s.state, tuning, s.x, self.idx, self.packed)
 
-    def __call__(self, x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
-        """One served block of ``x`` for channels ``idx``; returns the
-        result buffer."""
+    def select(self, idx: np.ndarray) -> None:
+        """Serve channels ``idx`` from the next block on."""
         idx = np.asarray(idx, np.int64)
         if not np.array_equal(idx, self._idx_host):
             # a new channel set (rare): the one host-to-device copy of a
             # served block, outside the graph
             self.idx.copy_(torch.from_numpy(idx))
             self._idx_host = idx.copy()
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """One served block of ``x`` for the selected channels; returns
+        the result buffer."""
         self.step.x.copy_(x)
         self.step.run(("gather", self.bucket), self._live)
         return self.packed

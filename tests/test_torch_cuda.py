@@ -1257,3 +1257,169 @@ def test_staged_blocks_reach_the_card_whole(card):
     finally:
         src.close()
     assert not eng._stage._thread.is_alive()
+
+
+def test_retune_bank_built_on_card_equals_host_build(card):
+    """A full retune's stage-1 bank built on the card, (2016, 4096),
+    against the host's build of the same words: ``dphi1`` equal, every
+    entry within one float32 ulp (the two float64 cos/sin may differ in
+    their last bit)."""
+    from flydog_sdr_gps_tpu_torch.ops import channelizer as chz
+    from flydog_sdr_gps_tpu_torch.ops import nco
+    plan = make_ddc_plan()
+    rng = np.random.default_rng(5)
+    freqs = np.concatenate([[7.1e6, 14.2018e6, 10e6, 0.0, 62.5e6],
+                            rng.uniform(0.0, 30e6, 4091)])
+    words = nco.freqs_to_fcws(freqs, plan.adc_clock * (1 + 4e-7))
+    bank, dphi = chz.build_filterbank(plan, [int(w) for w in words])
+    got, got_dphi = chz.build_filterbank_device(plan, words, card)
+    assert got.shape == (2016, 4096) and got.dtype == torch.complex64
+    np.testing.assert_array_equal(got_dphi.cpu().numpy(), dphi)
+    g = got.cpu().numpy()
+    for plane in (np.real, np.imag):
+        a, b = plane(g), plane(bank)
+        big = np.maximum(np.abs(a), np.abs(b)).astype(np.float32)
+        ulp = np.abs(a.astype(np.float64) - b) / np.spacing(big)
+        assert ulp.max() <= 1.0, ulp.max()
+        print(f"{plane.__name__}: {np.sum(a != b)} of {a.size} entries "
+              "one ulp off")
+
+
+class _DeviceBlock:
+    """A source of one fixed block on the card."""
+
+    def __init__(self, x):
+        self.x = x
+
+    def next_block(self, n):
+        return self.x
+
+
+def _live_engine(card, c=4096):
+    from flydog_sdr_gps_tpu_torch.runtime import StreamEngine
+    params = rx.RxParams(num_channels=c, audio_block=2048)
+    gen = torch.Generator(device=card).manual_seed(11)
+    x = 0.1 * torch.randn(params.ddc.adc_block, generator=gen, device=card)
+    eng = StreamEngine(params, _DeviceBlock(x), device=card)
+    for ch in range(0, c, 97):
+        eng.set_channel(ch, freq_hz=1e6 + 7.3e3 * ch, mode=demod.MODE_USB)
+    return eng
+
+
+def _serve_beside(eng, change, blocks, idx, gap):
+    """``blocks`` served blocks on a thread, ``change(i)`` on this one
+    every ``gap`` s; returns what each change saw of the block count,
+    (entered, returned)."""
+    import threading
+    import time
+    done = threading.Event()
+    err = []
+
+    def serve():
+        try:
+            for _ in range(blocks):       # paced as the server's loop is
+                eng.fetch(eng.run_block_gather(idx))
+        except BaseException as e:      # noqa: BLE001 — raised below
+            err.append(e)
+        finally:
+            done.set()
+    th = threading.Thread(target=serve)
+    th.start()
+    seqs, i = [], 0
+    while not done.is_set():
+        a = eng.seq
+        change(i)
+        seqs.append((a, eng.seq))
+        i += 1
+        time.sleep(gap)
+    th.join(timeout=120)
+    assert not th.is_alive() and not err, err
+    return seqs
+
+
+def test_retune_during_live_replays_is_read_whole(card):
+    """The compiled step at C=4096 serving blocks on a thread while
+    ``retune_all`` runs on another, twice over.  A stand-in replay that
+    reads the bank, spins the card, then reads the words, all on its
+    stream, sees an old or a new pair whole each time.  The real replays:
+    each retune returns within a few ms of host time, the last one's bank
+    and words are the step's, and every channel's rotator word after the
+    run is what blocks read under the old words up to some block in each
+    retune's span of blocks and under the new ones after it."""
+    import itertools
+    import time
+    from flydog_sdr_gps_tpu_torch.ops import channelizer as chz
+    from flydog_sdr_gps_tpu_torch.ops import nco
+    eng = _live_engine(card)
+    idx = np.arange(0, 4096, 97)
+    clocks = [eng.params.adc_clock * (1 + s * 1e-6) for s in (0.4, -0.3)]
+    eng.run_block_gather(idx)               # the first run and capture
+    eng.run_block_gather(idx)
+    torch.cuda.synchronize()
+
+    # the stand-in: reads on the step's stream with the card spinning
+    cols = torch.as_tensor(idx, device=card)
+    t = eng.tuning
+    pairs = [(t.bank[:, cols].clone(), t.dphi1[cols].clone())]
+    for clk in clocks:
+        words = nco.freqs_to_fcws([c.freq_hz for c in eng.ctl], clk)
+        b, d = chz.build_filterbank_device(eng.params.ddc, words, card)
+        pairs.append((b[:, cols], d[cols]))
+    seen = []
+    real_run = eng.compiled.run
+
+    def replay(program, fn):
+        tt = eng.compiled.tuning
+        bank = tt.bank[:, cols].clone()
+        torch.cuda._sleep(4_000_000)        # ~2 ms with the pair half read
+        seen.append((bank, tt.dphi1[cols].clone()))
+    eng.compiled.run = replay
+    _serve_beside(eng, lambda i: eng.retune_all(clocks[i % 2]), 200, idx,
+                  0.02)
+    torch.cuda.synchronize()
+    got = []
+    for bank, dphi in seen:
+        k = next((k for k, (b, d) in enumerate(pairs)
+                  if torch.equal(d, dphi) and torch.equal(b, bank)), -1)
+        got.append(k)
+    assert -1 not in got, got
+    assert {1, 2} <= set(got), set(got)
+
+    # the real replays
+    eng.compiled.run = real_run
+    phi0, n0 = eng.state.ddc.phi1.clone(), eng.seq
+    dphi0 = eng.tuning.dphi1.clone()
+    host_ms = []
+
+    def retune(i):
+        t0 = time.monotonic()
+        eng.retune_all(clocks[i % 2])
+        host_ms.append((time.monotonic() - t0) * 1e3)
+    seqs = _serve_beside(eng, retune, 24, idx, 0.15)
+    torch.cuda.synchronize()
+    last = clocks[(len(seqs) - 1) % 2]
+    words = nco.freqs_to_fcws([c.freq_hz for c in eng.ctl], last)
+    b, d = chz.build_filterbank_device(eng.params.ddc, words, card)
+    assert torch.equal(eng.tuning.bank, b) and torch.equal(
+        eng.tuning.dphi1, d)
+    print(f"{len(seqs)} retunes beside 24 blocks, host ms "
+          f"{sorted(round(v, 2) for v in host_ms)}")
+    assert len(seqs) >= 3 and max(host_ms) < 50.0, host_ms
+    k1 = eng.params.ddc.k1
+    dphis = [dphi0] + [chz.build_filterbank_device(
+        eng.params.ddc, nco.freqs_to_fcws([c.freq_hz for c in eng.ctl],
+                                          clocks[i % 2]), card)[1]
+        for i in range(len(seqs))]
+    want = eng.state.ddc.phi1
+    n1 = eng.seq
+    spans = [range(max(a, n0), min(b, n1) + 1) for a, b in seqs]
+    for splits in itertools.product(*spans):
+        if list(splits) != sorted(splits):
+            continue
+        phi = phi0.clone()
+        for n in range(n0, n1):
+            r = sum(1 for s in splits if s <= n)    # retunes it read
+            phi = nco.advance(phi, dphis[r], k1)
+        if torch.equal(phi, want):
+            return
+    raise AssertionError(f"no ordered placement explains the words: {seqs}")

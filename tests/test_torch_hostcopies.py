@@ -675,6 +675,23 @@ def test_viterbi_crc_and_inav_bit_for_bit():
     assert vars(at.eph) == vars(aj.eph)
 
 
+@pytest.mark.parametrize("kind", ["ties", "zeros", "short", "no_tail"])
+def test_viterbi_steps_every_state_at_once_bit_for_bit(kind):
+    """The port's decoder steps all 64 states at once; the reference's
+    visits them one by one.  Equal metrics (integer soft values, zeros)
+    keep the same survivor, and an untailed or short block traces back
+    the same way."""
+    rng = _rng(17)
+    for n in (1, 6, 7, 120, 125):
+        soft = {"ties": rng.integers(-2, 3, 2 * n).astype(np.float64),
+                "zeros": np.zeros(2 * n),
+                "short": rng.standard_normal(2 * n),
+                "no_tail": rng.standard_normal(2 * n)}[kind]
+        tail = kind != "no_tail"
+        np.testing.assert_array_equal(tgal.viterbi_decode_k7(soft, tail),
+                                      jgal.viterbi_decode_k7(soft, tail))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_bit_sync_bit_for_bit(seed):
     rng = _rng(seed)
