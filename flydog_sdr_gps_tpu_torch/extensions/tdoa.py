@@ -31,8 +31,13 @@ class TdoaExt(Extension):
     def process_block(self, taps) -> list:
         ch = self.rx_chan
         eng = self.engine
-        ticks, secs = (eng.gps_timestamp()
-                       if hasattr(eng, "gps_timestamp") else (0, 0.0))
+        # the block's own stamp where the taps carry one (the server's,
+        # whose fan-out may run beside the engine's next step)
+        stamp = getattr(taps, "stamp", None)
+        if stamp is None:
+            stamp = (eng.gps_timestamp()
+                     if hasattr(eng, "gps_timestamp") else (0, 0.0))
+        ticks, secs = stamp
         re, im = (c[::self.decim] for c in host_iq(taps.iq_post_agc, ch))
         iq = np.empty(len(re) * 2, np.float32)
         iq[0::2] = re

@@ -242,12 +242,17 @@ class WsprExt(Extension):
     def _samples(self) -> int:
         return self._capture.samples
 
-    def _cycle_pos(self) -> tuple[float, float]:
+    def _cycle_pos(self, taps) -> tuple[float, float]:
+        # at the block's own stamp where the taps carry one (the
+        # server's, whose fan-out may run beside the engine's next
+        # step), else at the engine's and the source's clocks now
+        stamp = getattr(taps, "stamp", None)
         src = getattr(self.engine, "source", None)
         fn = getattr(src, "fsk_cycle_pos_s", None)
         if fn is not None and getattr(src, "_fsk", None):
-            return fn()
-        ticks = getattr(self.engine, "block_ticks", 0)
+            return fn() if stamp is None else fn(ticks=stamp[0])
+        ticks = (getattr(self.engine, "block_ticks", 0) if stamp is None
+                 else stamp[0])
         clk = getattr(getattr(self.engine, "params", None),
                       "adc_clock", None)
         if clk is None:
@@ -256,7 +261,7 @@ class WsprExt(Extension):
 
     def process_block(self, taps) -> list:
         if self._waiting:
-            pos, _cyc = self._cycle_pos()
+            pos, _cyc = self._cycle_pos(taps)
             p = self.engine.params
             block_s = (getattr(p, "audio_block", 128)
                        / getattr(p, "fs_out", FS_AUDIO))

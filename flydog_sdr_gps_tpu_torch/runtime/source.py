@@ -648,13 +648,15 @@ class DeviceSceneSource:
         st["phi"] = phi
         return starts, phis, fcws, amps
 
-    def fsk_cycle_pos_s(self, idx: int = 0) -> tuple[float, float]:
+    def fsk_cycle_pos_s(self, idx: int = 0, ticks: int | None = None
+                        ) -> tuple[float, float]:
         """(seconds into the FSK cycle, cycle length in seconds) at the
-        CURRENT tick, so that a decoder can align its capture to the
-        transmission cadence."""
+        CURRENT tick, or at ``ticks``, so that a decoder can align its
+        capture to the transmission cadence."""
         st = self._fsk[idx]
         cyc = st["sym_ticks"] * st["cycle"]
-        return (self.ticks % cyc) / self.adc_clock, cyc / self.adc_clock
+        t = self.ticks if ticks is None else ticks
+        return (t % cyc) / self.adc_clock, cyc / self.adc_clock
 
     def next_block(self, n: int | None = None) -> torch.Tensor:
         if n is not None and n != self.block:

@@ -96,15 +96,41 @@ class _CplxCols:
 class HostTaps:
     """Host-side view of one block's taps for the subscribed channels
     (same attribute surface extensions use on the device RxTaps).
-    All arrays are (bucket, block) channel-row-major."""
+    All arrays are (bucket, block) channel-row-major.  ``stamp``: the
+    block's GPS time stamp, (48-bit ticks, seconds) as
+    ``engine.gps_timestamp()`` gives them, for the extensions that stamp
+    what they send (None: they read the engine's)."""
 
     def __init__(self, audio, audio2, iq_re, iq_im, smeter,
-                 chmap: dict[int, int]):
+                 chmap: dict[int, int],
+                 stamp: tuple[int, float] | None = None):
         self.audio = _Cols(audio, chmap)
         self.audio2 = _Cols(audio2, chmap)
         self.iq_post_agc = _CplxCols(iq_re, iq_im, chmap)
         self.smeter_dbm = smeter            # full (C,) host array
         self.chmap = chmap
+        self.stamp = stamp
+
+
+class _InFlight:
+    """One block in the block loop's pipeline: the subscribers it was
+    gathered for, its start on the ADC's sample clock, its host fetch
+    (``task``, the job ``server.fetch``) and that fetch's end (ns, 0
+    until then)."""
+
+    __slots__ = ("subs", "block", "ticks", "task", "fetched")
+
+    def __init__(self, subs: list[int], block: int, ticks: int):
+        self.subs, self.block, self.ticks = subs, block, ticks
+        self.task = None
+        self.fetched = 0
+
+    def fetch(self, get, handle):
+        """``get(handle)``, noting when it returned."""
+        try:
+            return get(handle)
+        finally:
+            self.fetched = time.monotonic_ns()
 
 
 class Connection:
@@ -1713,6 +1739,11 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         block at a one-block latency cost (the reference buffers the
         same way in its N_DPBUF=32 audio ring, `rx/data_pump.h:36`).
 
+        The oldest pending block goes out while the next block's step
+        still runs if its fetch is done first (:meth:`_fan_out_early`):
+        a step that waits for the ADC no longer holds the block's
+        listeners back.
+
         Spans (the tracer's): ``server.block``, one iteration, numbered
         by the block it dispatches; inside it the jobs ``server.step``
         (the step and the start of its fetch), ``server.wf_ingest`` and
@@ -1730,7 +1761,8 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         block_period = (self.engine.params.ddc.adc_block /
                         self.engine.params.adc_clock)
         next_t = time.monotonic()
-        pending = []            # in-flight (fetch task, subs, block)
+        pending: list[_InFlight] = []
+        wf_rows = None          # an early block's W/F rows, being sent
         tr = get_trace()
         while not self._stop.is_set():
             t0 = time.monotonic_ns()
@@ -1766,17 +1798,26 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                 #                 (S-meter, ADC peak, waterfall input)
             idx = np.zeros(bucket, np.int32)
             idx[:len(subs)] = subs
+            step = asyncio.ensure_future(self._job(
+                "server.step", n, "server.block", self._step_and_fetch, idx))
+            later = await self._fan_out_early(loop, step, pending)
             try:
-                handle = await self._job("server.step", n, "server.block",
-                                         self._step_and_fetch, idx)
+                handle = await step
                 if subs and fused:
                     self._warm_buckets.add(bucket)
             except Exception as e:      # noqa: BLE001 — keep serving
                 import traceback
                 lprintf("block_loop error: %s", e)
                 traceback.print_exc()
+                if wf_rows is not None:
+                    await wf_rows
+                    wf_rows = None
+                if later is not None:
+                    await later()
                 await asyncio.sleep(0.5)
                 continue
+            if wf_rows is not None:
+                await wf_rows       # framed before this block's ingest
             # ONE shared waterfall ingest per block serves every
             # attached connection (reference: <=4 shared WF DDCs);
             # dispatched now, while _last_x is still this block's
@@ -1791,12 +1832,19 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             # overlaps the next block's dispatch and device compute;
             # fan out the OLDEST pending block once the pipeline is
             # full (latency here = depth x block).
-            fut = asyncio.ensure_future(self._job(
-                "server.fetch", n, "server.block",
+            entry = _InFlight(subs, n, self.engine.gps_timestamp()[0])
+            entry.task = asyncio.ensure_future(self._job(
+                "server.fetch", n, "server.block", entry.fetch,
                 self._device_get or PackedFetch.result, handle))
-            pending.append((fut, subs, n))
+            pending.append(entry)
+            # the rest of an early fan-out, where the reference has it:
+            # after this step, and the W/F rows framed after this block's
+            # waterfall ingest (and before the next), while the loop goes
+            # on
+            wf_rows = None if later is None else asyncio.ensure_future(
+                later())
             if len(pending) >= self.pipeline_depth:
-                await self._process_fetched(loop, *pending.pop(0))
+                await self._process_fetched(loop, pending.pop(0))
             if self.realtime:
                 next_t += block_period
                 delay = next_t - time.monotonic()
@@ -1807,6 +1855,29 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             else:
                 await asyncio.sleep(0)
             tr.span("server.block", n, t0)
+
+    async def _fan_out_early(self, loop, step, pending: list):
+        """Fan out the oldest pending block now if it is due out in this
+        iteration and its fetch finishes before ``step``, the next
+        block's step job: that step is waiting for its block (a paced
+        ADC), and the block's listeners need not wait with it.  A step
+        that returns first (its block was there) leaves the fan-out
+        where it was, after the step.  The block's result is taken
+        before the step's fetch, the second after it, can start.
+        Returns the rest of an early fan-out, for the loop to call once
+        ``step`` is done (see :meth:`_process_fetched`), else None."""
+        if not pending or len(pending) + 1 < self.pipeline_depth:
+            return None
+        try:
+            await asyncio.wait({step, pending[0].task},
+                               return_when=asyncio.FIRST_COMPLETED)
+            if step.done():
+                return None
+            return await self._process_fetched(loop, pending.pop(0),
+                                               early=True)
+        except BaseException:
+            step.cancel()
+            raise
 
     def _encode_payloads(self, audio, audio2, iq_re, iq_im, chmap,
                          keys):
@@ -1850,7 +1921,8 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                     audio[row], audio2[row], le)
         return payloads
 
-    async def _process_fetched(self, loop, fut, subs, block: int) -> None:
+    async def _process_fetched(self, loop, entry: _InFlight,
+                               early: bool = False):
         """Await one block's (already launched) host fetch; fan out.
 
         The span ``server.fanout`` of ``block`` (the block fetched),
@@ -1858,7 +1930,28 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         the fetch is done), ``fanout.snd`` (the SND framing and queueing)
         and the jobs ``fanout.encode``, ``fanout.wf_row`` (one a W/F
         socket sent a row, then its ``fanout.wf_send``), ``fanout.ext``
-        and ``fanout.autorun``, each followed by its ``loop.lag``."""
+        and ``fanout.autorun``, each followed by its ``loop.lag``.
+        Before it, ``fanout.held``: from the end of the block's fetch
+        until the fan-out started, or no time if the fan-out was there
+        first; its detail is ``"early"`` if the block went out while the
+        next step still ran, else ``"after_next"``.
+
+        The block's GPS time stamp, in the IQ headers and the extensions'
+        taps, is the one the reference's order gives it: the engine's
+        block start once the blocks behind it in the pipeline have run
+        (the next block's start at a depth of 2), each step taking
+        ``adc_block`` ticks.  It is worked out from the block's own
+        start, so that a fan-out running beside the next step reads no
+        clock that the step moves.
+
+        Early, the part that waits for the next step is returned, a
+        function for the loop to call once that step is done: it resets
+        the engine's streaming state if the block was not finite, and
+        gives the coroutine that sends the W/F rows (framed after the
+        next block's waterfall ingest, as they are when the fan-out
+        comes after the next step); ``server.fanout`` then ends with
+        it."""
+        fut, subs, block = entry.task, entry.subs, entry.block
         tr = get_trace()
         t_fan = time.monotonic_ns()
         t0 = time.monotonic()
@@ -1904,7 +1997,14 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                     raise RuntimeError(
                         "device runtime wedged; restart requested")
         tr.span("fanout.fetch_wait", block, t_fan, "server.fanout")
+        if entry.fetched:
+            tr.span("fanout.held", block, entry.fetched, "",
+                    "early" if early else "after_next",
+                    t1=max(entry.fetched, t_fan))
         params = self.engine.params
+        ticks = (entry.ticks + (self.pipeline_depth - 1)
+                 * params.ddc.adc_block) % (1 << 48)
+        stamp = (ticks, ticks / params.adc_clock)
         # packed gather buffer (ONE fetch):
         # [4 x (bucket, block) channel rows | smeter(C) | peak]
         C = params.num_channels
@@ -1923,16 +2023,17 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         if adc_ovfl:
             self.adc_ov_count += 1
         chmap = {ch: i for i, ch in enumerate(subs)}
+        nonfinite = False
         if subs and taps_rows:
             # NaN-poison auto-reset (data-pump reset analogue): the
             # serving path bypasses run_block's periodic check,
             # so audit the fetched host copies instead
-            if not np.all(np.isfinite(taps_rows[0])):
+            nonfinite = not np.all(np.isfinite(taps_rows[0]))
+            if nonfinite:
                 lprintf("non-finite audio — streaming state reset")
-                self.engine.reset_streaming_state()
             host_taps = HostTaps(taps_rows[0], taps_rows[1],
                                  taps_rows[2], taps_rows[3],
-                                 smeter, chmap)
+                                 smeter, chmap, stamp)
             audio_np = host_taps.audio
         else:
             host_taps = None
@@ -1957,7 +2058,7 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         t_snd = time.monotonic_ns()
         iq_hdr = None
         if any(k[0] == "iq" for k in keys):
-            _ticks, secs = self.engine.gps_timestamp()
+            secs = stamp[1]
             iq_hdr = (int(secs) % (7 * 24 * 3600),
                       int((secs % 1.0) * 1e9))
         base_flags = packets.SND_FLAG_ADC_OVFL if adc_ovfl else 0
@@ -1980,18 +2081,10 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             except ConnectionResetError:
                 pass
         tr.span("fanout.snd", block, t_snd, "server.fanout")
+        # a conn that authed AFTER the subs snapshot has no gathered
+        # column yet — it starts next block
         for conn in list(self.conns.values()):
             try:
-                # a conn that authed AFTER the subs snapshot has
-                # no gathered column yet — it starts next block
-                in_map = conn.rx_chan in chmap
-                if conn.authed and conn.wf_ws is not None:
-                    if not self.wf_enabled:
-                        if in_map:
-                            await conn.emit_wf_audio(
-                                audio_np[:, conn.rx_chan])
-                    elif conn.wf_slot is not None:
-                        await conn.emit_wf(block)
                 if conn.ext is not None and host_taps is not None \
                         and conn.rx_chan in chmap:
                     msgs = await self._job(
@@ -2004,7 +2097,30 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         if self.autorun is not None and host_taps is not None:
             await self._job("fanout.autorun", block, "server.fanout",
                             self.autorun.process_block, host_taps)
-        tr.span("server.fanout", block, t_fan, "server.block")
+
+        async def rows():
+            for conn in list(self.conns.values()):
+                try:
+                    if not conn.authed or conn.wf_ws is None:
+                        continue
+                    if not self.wf_enabled:
+                        if conn.rx_chan in chmap:
+                            await conn.emit_wf_audio(
+                                audio_np[:, conn.rx_chan])
+                    elif conn.wf_slot is not None:
+                        await conn.emit_wf(block)
+                except ConnectionResetError:
+                    pass
+            tr.span("server.fanout", block, t_fan, "server.block")
+
+        def later():
+            if nonfinite:
+                self.engine.reset_streaming_state()
+            return rows()
+        if early:
+            return later
+        await later()
+        return None
 
     def _try_engine_reset(self) -> None:
         """Streaming-state reset in the executor (may itself block on
