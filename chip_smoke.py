@@ -158,11 +158,16 @@ What it does, in order (any failed check raises; exit code != 0):
    realtime factor beside phase 3's, the peak memory and one SET's ms;
    with ``--profile`` the summed kernel time and kernel count of one mesh
    block and of one fused single-device block.
-9b. A ``KiwiServer`` over such a mesh engine (the non-fused serving
-   branch): four SND listeners (USB on 14200.00 kHz, which must hear the
-   14.2018 MHz tone at 1800 +- 40 Hz, AM, LSB, IQ) and one W/F socket,
-   whose z0 row must peak on the carriers; kernels 2, 3, 4 four times a
-   block; no bucket prewarmed.  Then ``run_server --mesh time=1,chan=1``
+9b. The mesh engine's serving path: two such engines on phase 3's scene
+   for 6 blocks, with phase 9a's SET and ``retune_all``; each block that
+   one serves (``run_block_gather``, after a ``prewarm_gather`` that must
+   move nothing) must equal the other's ``run_block`` taps packed by
+   ``pack_columns``, to the bit.  Then a ``KiwiServer`` over a mesh
+   engine, served through that gather: four SND listeners (USB on
+   14200.00 kHz, which must hear the 14.2018 MHz tone at 1800 +- 40 Hz,
+   AM, LSB, IQ) and one W/F socket, whose z0 row must peak on the
+   carriers; kernels 2, 3, 4 four times a block; the bucket served (4)
+   warm.  Then ``run_server --mesh time=1,chan=1``
    must build on the card, and ``--mesh time=2,chan=2`` on a host without
    four cards must end naming the card count.
 9c. Stage 2 by FFT correlation: ``RxParams(stage2="fft")``'s slice
@@ -2943,19 +2948,44 @@ def phase_mesh(torch, device, channels: int, block: int,
                 heard_hz=[f_am, f_lsb])
 
 
+def mesh_gather_check(torch, device, channels: int, block: int) -> None:
+    """Two mesh engines from one state on the same scene, through phase
+    9a's SET and ``retune_all``: each block ``run_block_gather`` serves
+    is the twin's ``run_block`` taps packed by ``pack_columns``, to the
+    bit; ``prewarm_gather`` moves nothing."""
+    from flydog_sdr_gps_tpu_torch.runtime.stream import pack_columns
+    served, twin = (make_mesh_engine(torch, device, channels, block)
+                    for _ in range(2))
+    idx = np.array([1, 0, 5, 0], np.int32)
+    served.prewarm_gather(len(idx))
+    check(served.seq == 0, "prewarm_gather ran a block")
+    for b in range(6):
+        for e in (served, twin):
+            mesh_events(torch, e, b)
+        got = served.run_block_gather(idx)
+        want = pack_columns(twin.run_block(), twin._last_x, idx)
+        check(got.shape == (served.packed_len(len(idx)),) and
+              torch.equal(got, want),
+              f"mesh block {b}: run_block_gather is not pack_columns of "
+              "run_block's taps")
+    log("  mesh gather: 6 blocks equal to pack_columns of run_block's "
+        "taps, to the bit")
+
+
 def phase_mesh_server(torch, device, channels: int, block: int,
                       nblocks: int = MESH_SERVER_BLOCKS) -> dict:
-    """9b: a ``KiwiServer`` over a mesh engine (the non-fused serving
-    branch): four SND listeners and one W/F socket over in-process
-    sockets; then ``run_server --mesh`` built on the card."""
+    """9b: the mesh engine's gather against its ``run_block``
+    (:func:`mesh_gather_check`); a ``KiwiServer`` over a mesh engine:
+    four SND listeners and one W/F socket over in-process sockets; then
+    ``run_server --mesh`` built on the card."""
     import asyncio
     from flydog_sdr_gps_tpu_torch import run_server
     from flydog_sdr_gps_tpu_torch.numerology import UI_SRATE_30M, WF_OUT_PX
     from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
     from flydog_sdr_gps_tpu_torch.server import KiwiServer
+    mesh_gather_check(torch, device, channels, block)
     counters = kernel_counters()
     eng = make_mesh_engine(torch, device, channels, block)
-    check(eng.run_block_gather is None, "the mesh engine has a fused path")
     server = KiwiServer(eng, realtime=False, port=0)
     auth = "SET auth t=kiwi p="
     script = [
@@ -2995,7 +3025,8 @@ def phase_mesh_server(torch, device, channels: int, block: int,
         return blocks, launches
     t_from = time.monotonic_ns()            # the server's spans start here
     blocks, launches = asyncio.run(drive())
-    check(server._warm_buckets == set(), "a bucket was prewarmed")
+    check(server._warm_buckets == {4},
+          f"warm buckets {server._warm_buckets}, not the one served (4)")
     n_dev = MESH[0] * MESH[1]
     for k in ("stage2", "agc_envelope", "sam_pll"):
         check(launches[k] == n_dev * blocks, f"kernel {k}: {launches[k]} "

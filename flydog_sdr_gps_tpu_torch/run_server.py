@@ -229,11 +229,9 @@ async def prewarm(server, eng, max_listeners: int) -> None:
     ``max_listeners`` in the background and mark it warm, so that
     neither the FIRST listener nor listener #9/#17/... waits.  On the
     card ``prewarm_gather`` captures each bucket's serve program (the
-    first after a warm-up on scratch buffers); on the CPU it has
-    nothing to do.  Buckets beyond the set are prepared off the serving
+    first after a warm-up on scratch buffers); on the CPU and on a mesh
+    it has nothing to do.  Buckets beyond the set are prepared off the serving
     path (`KiwiServer._serve_bucket`)."""
-    if getattr(eng, "run_block_gather", None) is None:
-        return          # no fused serving path: nothing to prepare
     loop = asyncio.get_running_loop()
     nchan = eng.params.num_channels
     top = 1

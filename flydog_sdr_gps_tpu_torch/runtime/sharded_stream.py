@@ -13,10 +13,12 @@ unchanged.  What differs:
   the control plane edits: every assignment of ``tuning`` (a SET,
   ``retune_all``, a restored checkpoint, ``convert.load_ctl``) re-shards
   it, so the mesh never runs on a stale tuning;
-- :meth:`run_block` places each block over the mesh's time rows and
-  returns whole-C taps on the first device;
-- there is no fused step-and-gather (``run_block_gather = None``); the
-  server packs the same columns from ``run_block``'s taps;
+- :meth:`_advance` places each block over the mesh's time rows and
+  gives whole-C taps on the first device; the block is taken from the
+  source as it comes, without the single engine's staging.  The base's
+  ``run_block`` and ``run_block_gather`` (its unfused branch: the
+  served columns packed from those taps) serve the mesh, and
+  ``prewarm_gather`` has nothing to prepare;
 - a checkpoint is the single-device engine's format in the unfused
   representation (stage-1 tail rotated): it loads into a
   ``StreamEngine`` with ``RxParams(stage2="unfused")``, and such an
@@ -36,10 +38,6 @@ from .stream import StreamEngine, _ready_event
 
 class ShardedStreamEngine(StreamEngine):
     """``StreamEngine`` whose step runs split over a (time, chan) mesh."""
-
-    # the server's fused serving path belongs to the single-device step;
-    # with this engine it packs the columns from run_block's taps
-    run_block_gather = None
 
     def __init__(self, params: rx.RxParams, source, mesh=None,
                  time: int | None = None, chan: int | None = None,
@@ -93,10 +91,11 @@ class ShardedStreamEngine(StreamEngine):
         return self._program.tuning
 
     # -- data plane ------------------------------------------------------
-    def run_block(self) -> rx.RxTaps:
+    def _advance(self) -> tuple[torch.Tensor, rx.RxTaps]:
         """One source block over the mesh (this process's time rows of
         it when several processes share the mesh); whole-C taps on the
-        first device; fan out."""
+        first device.  The step and the gather of its taps run under the
+        dispatch lock, as the single engine's step does."""
         ticks = getattr(self.source, "ticks", 0)
         x = self.source.next_block(self.params.ddc.adc_block
                                    // self.mesh.num_processes)
@@ -105,16 +104,12 @@ class ShardedStreamEngine(StreamEngine):
         x = x.to(self.device)
         self._last_x = x            # raw block for waterfall taps
         self._x_ready = _ready_event(x)
-        taps = self._program(x)
-        taps = parallel.gather_taps(taps, self.mesh, self.device)
-        self.block_ticks = ticks
-        self.seq += 1
-        if self.seq % 64 == 0:          # cheap periodic health check
-            if not bool(torch.isfinite(taps.audio).all()):
-                self.reset_streaming_state()
-        for fn in self.subscribers:
-            fn(self, taps)
-        return taps
+        with self._dispatch:
+            taps = parallel.gather_taps(self._program(x), self.mesh,
+                                        self.device)
+            self.block_ticks = ticks
+            self.seq += 1
+        return x, taps
 
     # -- checkpoint / resume ----------------------------------------------
     def _whole_state(self) -> rx.RxState:

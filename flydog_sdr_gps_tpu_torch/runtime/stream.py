@@ -541,8 +541,7 @@ def pack_columns(taps: rx.RxTaps, x: torch.Tensor,
     smeter(C) | peak]``, the channels ``idx`` of each tap transposed to
     (len(idx), block) row-major; ``peak`` is max|x| of the raw block.
     ``idx`` is a host array or an int64 tensor on the taps' device.
-    This is :meth:`StreamEngine.run_block_gather`'s result, and what the
-    server packs from ``run_block``'s taps for an engine without it."""
+    This is :meth:`StreamEngine.run_block_gather`'s result."""
     i = idx if isinstance(idx, torch.Tensor) else torch.as_tensor(
         np.asarray(idx), dtype=torch.int64, device=taps.audio.device)
     iq = taps.iq_post_agc.index_select(1, i)

@@ -28,11 +28,11 @@ so :meth:`KiwiServer.open_stream` takes any object of that surface and
 :meth:`KiwiServer.start` builds the aiohttp application and needs the
 package.
 
-An engine split over several devices (``runtime.ShardedStreamEngine``,
-whose ``run_block_gather`` is None) takes the reference's non-fused
-branch: ``run_block`` in the executor, then the subscribed columns
-packed in the fused path's layout (``runtime.stream.pack_columns``), so
-that the fetch, the fan-out and the waterfall are one code path.  The GPS
+Every engine, the one split over several devices
+(``runtime.ShardedStreamEngine``) too, is served through one contract:
+``run_block_gather`` and ``start_fetch`` in the executor,
+``prewarm_gather`` for a new bucket, and the block ``_last_x`` with its
+``_x_ready`` for the waterfall.  The GPS
 subsystem (``gps=``, a ``runtime.GpsReceiver``) runs beside the block
 loop as the reference's does, started by :meth:`KiwiServer.start_tasks`.
 Background decoders (``autorun=``, ``server.autorun``) claim idle
@@ -61,7 +61,6 @@ from .. import extensions as ext_mod
 from ..utils.log import lprintf
 from ..utils.trace import ev, get_trace, EV_SND, EV_WF, EV_WS
 from ..utils import dx as dx_mod
-from ..runtime.stream import pack_columns
 from . import packets
 from . import wf_service
 
@@ -832,12 +831,6 @@ class KiwiServer:
         # bucket so live streams never stall mid-flight.
         self._warm_buckets: set[int] = set()
         self._bucket_compiling: int | None = None
-        # blocks in flight (dispatch N while block N-depth+1 fans
-        # out); depth 2 hides the host copy behind the next block's
-        # device compute at a 2-block audio latency.  The engine's
-        # fetch uses two host buffers in turns, so nothing deeper is
-        # safe: the block loop refuses it.
-        self.pipeline_depth = 2
         # background decoders on idle channels (rx_util.cpp arun_*)
         from . import autorun as autorun_mod
         self.autorun = (autorun_mod.AutorunManager(self, autorun)
@@ -1649,9 +1642,6 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             need *= 2
         if need in self._warm_buckets or not self._warm_buckets:
             return need
-        prewarm = getattr(self.engine, "prewarm_gather", None)
-        if prewarm is None:
-            return need
         if self._bucket_compiling is None:
             self._bucket_compiling = need
             import threading
@@ -1659,7 +1649,7 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             def _compile(bucket=need):
                 self.compiles_in_flight += 1
                 try:
-                    prewarm(bucket)
+                    self.engine.prewarm_gather(bucket)
                     self._warm_buckets.add(bucket)
                     lprintf("bucket %d prepared off-path", bucket)
                 except Exception as e:      # noqa: BLE001
@@ -1717,20 +1707,12 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
     def _step_and_fetch(self, idx: np.ndarray):
         """One block on the device and the start of its host copy, on
         ONE executor thread: the event that ``start_fetch`` records
-        must go on the stream that ran the gather.  An engine without
-        ``run_block_gather`` (the multi-device engine) runs ``run_block``
-        and its taps' columns are packed in the same layout, the peak
-        from ``_last_x``.  On the compiled engine the packed result is a
-        buffer that the next block overwrites: ``start_fetch`` enqueues
-        its copy on the same stream before any later block's replay, so
-        it copies this block's result."""
-        gather = getattr(self.engine, "run_block_gather", None)
-        if gather is None:
-            taps = self.engine.run_block()
-            packed = pack_columns(taps, self.engine._last_x, idx)
-        else:
-            packed = gather(idx)
-        return self.engine.start_fetch(packed)
+        must go on the stream that ran the gather.  On the compiled
+        engine the packed result is a buffer that the next block
+        overwrites: ``start_fetch`` enqueues its copy on the same stream
+        before any later block's replay, so it copies this block's
+        result."""
+        return self.engine.start_fetch(self.engine.run_block_gather(idx))
 
     async def _block_loop_once_init(self):
         """One block in flight: dispatch block N's device work, then
@@ -1739,10 +1721,9 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         block at a one-block latency cost (the reference buffers the
         same way in its N_DPBUF=32 audio ring, `rx/data_pump.h:36`).
 
-        The oldest pending block goes out while the next block's step
-        still runs if its fetch is done first (:meth:`_fan_out_early`):
-        a step that waits for the ADC no longer holds the block's
-        listeners back.
+        The held block goes out while the next block's step still runs
+        if its fetch is done first (:meth:`_fan_out_early`): a step that
+        waits for the ADC no longer holds the block's listeners back.
 
         Spans (the tracer's): ``server.block``, one iteration, numbered
         by the block it dispatches; inside it the jobs ``server.step``
@@ -1750,18 +1731,15 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         ``server.fetch`` (the wait for the host copy), and the fan-out
         of the block fetched (``_process_fetched``)."""
         from ..runtime.stream import PackedFetch
-        if not 1 <= self.pipeline_depth <= 2:
-            # the engine's fetch has two host buffers, used in turns: a
-            # handle's result must be taken before the second fetch
-            # after it starts, which holds for a depth of 2 and for
-            # nothing deeper
-            raise ValueError("pipeline_depth must be 1 or 2: the engine "
-                             "fetches into two host buffers in turns")
         loop = asyncio.get_running_loop()
         block_period = (self.engine.params.ddc.adc_block /
                         self.engine.params.adc_clock)
         next_t = time.monotonic()
-        pending: list[_InFlight] = []
+        # the block fetched and not yet fanned out: ONE, because the
+        # engine's fetch has two host buffers used in turns, and a
+        # handle's result must be taken before the second fetch after it
+        # starts (StreamEngine.start_fetch)
+        held: _InFlight | None = None
         wf_rows = None          # an early block's W/F rows, being sent
         tr = get_trace()
         while not self._stop.is_set():
@@ -1780,19 +1758,11 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                  if c.rx_chan is not None and c.authed}
                 | (self.autorun.channels
                    if self.autorun is not None else set()))
-            fused = getattr(self.engine, "run_block_gather",
-                            None) is not None
-            if subs and fused:
+            if subs:
                 bucket = self._serve_bucket(len(subs))
                 if bucket < len(subs):
                     subs = subs[:bucket]      # late joiners wait for
                     #                           the off-path prepare
-            elif subs:
-                # no fused path (the multi-device engine): nothing to
-                # prepare, every subscriber is served at once
-                bucket = 1
-                while bucket < len(subs):
-                    bucket *= 2
             else:
                 bucket = 1      # nobody listens: the block still runs
                 #                 (S-meter, ADC peak, waterfall input)
@@ -1800,10 +1770,12 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
             idx[:len(subs)] = subs
             step = asyncio.ensure_future(self._job(
                 "server.step", n, "server.block", self._step_and_fetch, idx))
-            later = await self._fan_out_early(loop, step, pending)
+            later = await self._fan_out_early(loop, step, held)
+            if later is not None:
+                held = None
             try:
                 handle = await step
-                if subs and fused:
+                if subs:
                     self._warm_buckets.add(bucket)
             except Exception as e:      # noqa: BLE001 — keep serving
                 import traceback
@@ -1827,24 +1799,23 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                     for c in self.conns.values()):
                 await self._job("server.wf_ingest", n, "server.block",
                                 self.wf.ingest, self.engine._last_x,
-                                getattr(self.engine, "_x_ready", None))
+                                self.engine._x_ready)
             # wait for the host copy in an executor thread, so that it
             # overlaps the next block's dispatch and device compute;
-            # fan out the OLDEST pending block once the pipeline is
-            # full (latency here = depth x block).
+            # fan out the held block, one block behind.
             entry = _InFlight(subs, n, self.engine.gps_timestamp()[0])
             entry.task = asyncio.ensure_future(self._job(
                 "server.fetch", n, "server.block", entry.fetch,
                 self._device_get or PackedFetch.result, handle))
-            pending.append(entry)
             # the rest of an early fan-out, where the reference has it:
             # after this step, and the W/F rows framed after this block's
             # waterfall ingest (and before the next), while the loop goes
             # on
             wf_rows = None if later is None else asyncio.ensure_future(
                 later())
-            if len(pending) >= self.pipeline_depth:
-                await self._process_fetched(loop, pending.pop(0))
+            prev, held = held, entry
+            if prev is not None:
+                await self._process_fetched(loop, prev)
             if self.realtime:
                 next_t += block_period
                 delay = next_t - time.monotonic()
@@ -1856,25 +1827,23 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                 await asyncio.sleep(0)
             tr.span("server.block", n, t0)
 
-    async def _fan_out_early(self, loop, step, pending: list):
-        """Fan out the oldest pending block now if it is due out in this
-        iteration and its fetch finishes before ``step``, the next
-        block's step job: that step is waiting for its block (a paced
-        ADC), and the block's listeners need not wait with it.  A step
-        that returns first (its block was there) leaves the fan-out
-        where it was, after the step.  The block's result is taken
-        before the step's fetch, the second after it, can start.
+    async def _fan_out_early(self, loop, step, held: _InFlight | None):
+        """Fan out the ``held`` block now if its fetch finishes before
+        ``step``, the next block's step job: that step is waiting for
+        its block (a paced ADC), and the block's listeners need not wait
+        with it.  A step that returns first (its block was there) leaves
+        the fan-out where it was, after the step.  The block's result is
+        taken before the step's fetch, the second after it, can start.
         Returns the rest of an early fan-out, for the loop to call once
         ``step`` is done (see :meth:`_process_fetched`), else None."""
-        if not pending or len(pending) + 1 < self.pipeline_depth:
+        if held is None:
             return None
         try:
-            await asyncio.wait({step, pending[0].task},
+            await asyncio.wait({step, held.task},
                                return_when=asyncio.FIRST_COMPLETED)
             if step.done():
                 return None
-            return await self._process_fetched(loop, pending.pop(0),
-                                               early=True)
+            return await self._process_fetched(loop, held, early=True)
         except BaseException:
             step.cancel()
             raise
@@ -1937,12 +1906,10 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
         next step still ran, else ``"after_next"``.
 
         The block's GPS time stamp, in the IQ headers and the extensions'
-        taps, is the one the reference's order gives it: the engine's
-        block start once the blocks behind it in the pipeline have run
-        (the next block's start at a depth of 2), each step taking
-        ``adc_block`` ticks.  It is worked out from the block's own
-        start, so that a fan-out running beside the next step reads no
-        clock that the step moves.
+        taps, is the one the reference's order gives it: the next
+        block's start, each step taking ``adc_block`` ticks.  It is
+        worked out from the block's own start, so that a fan-out running
+        beside the next step reads no clock that the step moves.
 
         Early, the part that waits for the next step is returned, a
         function for the loop to call once that step is done: it resets
@@ -2002,8 +1969,7 @@ REST: <a href="/status">/status</a> <a href="/users">/users</a>
                     "early" if early else "after_next",
                     t1=max(entry.fetched, t_fan))
         params = self.engine.params
-        ticks = (entry.ticks + (self.pipeline_depth - 1)
-                 * params.ddc.adc_block) % (1 << 48)
+        ticks = (entry.ticks + params.ddc.adc_block) % (1 << 48)
         stamp = (ticks, ticks / params.adc_clock)
         # packed gather buffer (ONE fetch):
         # [4 x (bucket, block) channel rows | smeter(C) | peak]

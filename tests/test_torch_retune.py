@@ -7,7 +7,8 @@
   ``nco.freqs_to_fcws`` against ``freq_to_fcw``.
 - A stand-in step replaying on one thread while ``retune_all`` (or
   ``set_channel``) runs on another: every replay reads an old or a new
-  ``(bank, dphi1)`` pair whole.
+  ``(bank, dphi1)`` pair whole, on the single engine and from the shard
+  buffers of the multi-device engine.
 - The GPS part of the benchmark (``benchmark/parts/gps.py``): its numbers
   from a stub receiver, and its IF replay, which never wraps.
 """
@@ -160,16 +161,57 @@ def whole(seen, pairs):
     return out
 
 
+CLOCKS = (CLOCK * (1 + 4e-7), CLOCK * (1 - 2e-6))
+
+
+def retune_pairs(eng):
+    """The engine's ``(bank, dphi1)`` now, then the pair ``retune_all``
+    builds for each of ``CLOCKS``.  The process's first bank build on
+    the CPU can differ from later builds of the same words by an ulp in
+    one part of the bank, so one build is made and dropped first: the
+    engine's builds are later ones too."""
+    t = eng.tuning
+    words = [nco.freqs_to_fcws([c.freq_hz for c in eng.ctl], clk)
+             for clk in CLOCKS]
+    chz.build_filterbank_device(eng.params.ddc, words[0], "cpu")
+    return [(t.bank.clone(), t.dphi1.clone())] + [
+        chz.build_filterbank_device(eng.params.ddc, w, "cpu") for w in words]
+
+
 def test_retune_all_is_read_whole_by_each_replay():
     eng, seen = stand_in_engine()
-    t = eng.tuning
-    pairs = [(t.bank.clone(), t.dphi1.clone())]
-    clocks = (CLOCK * (1 + 4e-7), CLOCK * (1 - 2e-6))
-    for clk in clocks:
-        words = nco.freqs_to_fcws([c.freq_hz for c in eng.ctl], clk)
-        pairs.append(chz.build_filterbank_device(eng.params.ddc, words,
-                                                 "cpu"))
-    retunes = replay_beside(eng, lambda i: eng.retune_all(clocks[i % 2]))
+    pairs = retune_pairs(eng)
+    retunes = replay_beside(eng, lambda i: eng.retune_all(CLOCKS[i % 2]))
+    got = whole(seen, pairs)
+    assert -1 not in got, got
+    assert retunes >= 4 and {1, 2} <= set(got), (retunes, set(got))
+
+
+def test_retune_all_is_read_whole_by_each_mesh_replay():
+    """The multi-device engine's step reads its shard buffers under the
+    dispatch lock: each block reads the bank columns and words of every
+    shard from one retune."""
+    from flydog_sdr_gps_tpu_torch import parallel as tpar
+    from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
+    c = 8
+    eng = ShardedStreamEngine(trx.RxParams(num_channels=c, audio_block=64),
+                              Zeros(),
+                              mesh=tpar.make_mesh(2, 2, devices=["cpu"] * 4))
+    for ch in range(c):
+        eng.set_channel(ch, freq_hz=1e6 + 3.3e6 * ch)
+    prog, seen = eng.program, []
+
+    def replay():
+        # the shards' bank columns, then (a torn read's window) their
+        # words, in channel order
+        row = prog.tuning.shards[0]
+        bank = torch.cat([sh.bank for sh in row], dim=1)
+        time.sleep(0.001)
+        seen.append((bank, torch.cat([sh.dphi1 for sh in row])))
+    prog._body = replay
+    pairs = retune_pairs(eng)
+    retunes = replay_beside(eng, lambda i: eng.retune_all(CLOCKS[i % 2]),
+                            n=60)
     got = whole(seen, pairs)
     assert -1 not in got, got
     assert retunes >= 4 and {1, 2} <= set(got), (retunes, set(got))

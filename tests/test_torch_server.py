@@ -591,15 +591,6 @@ def test_stall_while_a_bucket_is_prepared_does_not_escalate():
     asyncio.run(scenario())
 
 
-def test_pipeline_deeper_than_the_fetch_buffers_is_refused():
-    async def scenario():
-        server = _port_server()
-        server.pipeline_depth = 3
-        with pytest.raises(ValueError, match="two host buffers"):
-            await server._block_loop_once_init()
-    asyncio.run(scenario())
-
-
 @pytest.mark.parametrize("kw,word", [
     (dict(autorun=["nosuch:518"]), "autorun")])
 def test_unported_parts_are_refused_by_name(kw, word):
@@ -624,17 +615,17 @@ def test_every_reference_extension_is_taken_by_autorun():
         assert args.autorun == [f"{name}:518"]
 
 
-def test_engine_without_gather_is_served():
-    """An engine whose ``run_block_gather`` is None (the multi-device
-    engine, as the reference's sets it) is served through ``run_block``:
-    a listener gets SND packets in sequence, no bucket is prewarmed."""
+def test_mesh_engine_is_served_through_the_gather():
+    """The multi-device engine is served through the same contract as
+    the single one (``run_block_gather``, ``prewarm_gather``): a
+    listener gets SND packets in sequence, and the bucket served is
+    warm."""
     from flydog_sdr_gps_tpu_torch import parallel
     from flydog_sdr_gps_tpu_torch.runtime import ShardedStreamEngine
     eng = ShardedStreamEngine(
         trx.RxParams(num_channels=C, audio_block=BLOCK),
         tsource.SyntheticSource(**scene()),
         mesh=parallel.make_mesh(2, 2, devices=["cpu"] * 4))
-    assert eng.run_block_gather is None
 
     async def scenario():
         server = tks.KiwiServer(eng, realtime=False, port=0)
@@ -644,7 +635,7 @@ def test_engine_without_gather_is_served():
             await _wait(lambda: len(sock.of(b"SND")) >= 3, what="audio")
             seqs = [_snd(p)[1] for p in sock.of(b"SND")]
             assert seqs == list(range(len(seqs)))
-            assert server._warm_buckets == set()
+            assert 1 in server._warm_buckets
         finally:
             await server.stop()
     asyncio.run(scenario())

@@ -31,6 +31,7 @@ from flydog_sdr_gps_tpu_torch.models import rx_channel as trx
 from flydog_sdr_gps_tpu_torch.ops import demod
 from flydog_sdr_gps_tpu_torch.runtime import (ShardedStreamEngine,
                                               StreamEngine, SyntheticSource)
+from flydog_sdr_gps_tpu_torch.runtime import stream as tstream
 from flydog_sdr_gps_tpu_torch.server import kiwi_server as tks
 
 C, BLOCK = 8, 128
@@ -72,7 +73,10 @@ def test_sharded_engine_matches_reference_and_unfused_engine():
                    _source(JSource), mesh=jpar.make_mesh(time=2, chan=4))
     eng = ShardedStreamEngine(_params(), _source(), mesh=_mesh(2, 4))
     single = _unfused()
-    assert eng.run_block_gather is None
+    # served through the base's contract: its unfused gather, no prepare
+    assert (ShardedStreamEngine.run_block_gather
+            is StreamEngine.run_block_gather)
+    assert eng.compiled is None
     assert eng.device == torch.device("cpu")
     engines = (ref, eng, single)
     for e in engines:
@@ -225,8 +229,7 @@ async def _hear(engine, packets=20) -> np.ndarray:
         while sum(p[:3] == b"SND" for p in sock.sent) < packets:
             await asyncio.sleep(0.01)
             assert time.monotonic() - t0 < 120, "no audio"
-        if engine.run_block_gather is None:
-            assert server._warm_buckets == set()    # no prewarm on a mesh
+        assert 1 in server._warm_buckets        # the one listener's bucket
         return _snd_audio(sock)
     finally:
         await server.stop()
@@ -262,9 +265,10 @@ def test_server_over_mesh_serves_matching_audio():
 
 
 def test_server_packs_the_mesh_engine_like_the_fused_path():
-    """The non-fused branch packs ``run_block``'s columns in the layout
-    ``run_block_gather`` returns: a mesh engine's packed block equals an
-    unfused engine's fused pack within the mesh bounds, same length."""
+    """The server's step on a mesh engine packs its taps' columns in the
+    layout the single engine's ``run_block_gather`` returns: a mesh
+    engine's packed block equals an unfused engine's pack within the
+    mesh bounds, same length."""
     eng = ShardedStreamEngine(_params(), _source(), mesh=_mesh(2, 4))
     single = _unfused()
     server = tks.KiwiServer(eng, realtime=False, port=0)
@@ -275,3 +279,41 @@ def test_server_packs_the_mesh_engine_like_the_fused_path():
     np.testing.assert_allclose(got, want, rtol=0, atol=3e-3)
     assert got[-1] == pytest.approx(float(np.abs(
         eng._last_x.numpy()).max()))
+
+
+def _frozen(eng) -> list[torch.Tensor]:
+    """Copies of what a block reads and moves: the whole state, the
+    shard buffers of the tuning, ``seq`` and ``block_ticks``."""
+    leaves = tstream._state_leaves(tpar.gather_rx_state(eng.state, eng.mesh,
+                                                        "cpu"))
+    for row in eng.sharded_tuning.shards:
+        leaves += [t for sh in row if sh is not None
+                   for t in (sh.bank, sh.dphi1, sh.mode, sh.pb_coef)]
+    return [t.clone() for t in leaves] + [
+        torch.tensor([eng.seq, eng.block_ticks])]
+
+
+def test_mesh_gather_packs_run_blocks_columns():
+    """Two mesh engines from one state, through a SET and a
+    ``retune_all`` between blocks: the served block
+    (``run_block_gather``) is the twin's ``run_block`` taps packed with
+    ``pack_columns``, to the bit, and ``prewarm_gather`` moves nothing."""
+    served, twin = (ShardedStreamEngine(_params(), _source(), mesh=_mesh(2, 2))
+                    for _ in range(2))
+    idx = np.array([1, 0, 5, 0], np.int32)
+    changes = (
+        lambda e: e.set_channel(1, freq_hz=14.2e6, mode=demod.MODE_USB),
+        lambda e: e.retune_all(e.params.adc_clock * (1 + 0.4e-6)),
+        lambda e: None)
+    for i, change in enumerate(changes):
+        before = _frozen(served)
+        served.prewarm_gather(4)
+        assert all(torch.equal(a, b)
+                   for a, b in zip(before, _frozen(served))), i
+        got = served.run_block_gather(idx)
+        want = tstream.pack_columns(twin.run_block(), twin._last_x, idx)
+        assert got.shape == (served.packed_len(4),)
+        assert torch.equal(got, want), f"block {i}"
+        for e in (served, twin):
+            change(e)
+    assert served.seq == twin.seq == 3
